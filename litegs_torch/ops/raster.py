@@ -1,52 +1,157 @@
-"""Rasterize front end: one entry point over the CUDA kernel and the plain
-PyTorch version, forward only (``litegs_tpu/ops/raster.py::rasterize``).
+"""Differentiable rasterize: one entry point over the CUDA kernels and the
+plain PyTorch version (``litegs_tpu/ops/raster.py``).
 
-Dispatch follows the tensors' device: CUDA tensors go to the hand-written
-kernel (``raster_cuda``), CPU tensors to the differentiable plain version
-(``raster_plain``).  ``backend='torch'`` forces the plain version on
-either device.  The backward kernel comes with the training slice; until
-then a CUDA call on tensors that require grad raises.
+``backend='cuda'`` runs a ``torch.autograd.Function`` whose forward is
+``raster_cuda.raster_forward`` and whose backward is
+``raster_cuda.raster_backward``: the hand-written kernels on CUDA tensors,
+their plain versions on CPU tensors.  ``backend='torch'`` is autograd
+through ``raster_plain.rasterize_reference`` on either device (the oracle).
+
+Densification statistics ride the same backward-kernel run as the
+parameter gradients: pass ``stats_sink=zero_stats_sink(M)`` and the sink's
+gradient *is* the :class:`RasterStats`, as the reference accumulates them
+inside its backward (raster.cu:289-301, 779-820).  :func:`raster_stats` is
+the explicit pass for the ``'torch'`` backend.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
+from ..utils import resolve_device
 from . import raster_cuda, raster_plain
 from .binning import BinningResult
 
 
+class RasterStats(NamedTuple):
+    weight_sum: torch.Tensor      # [M] sum of blend weights
+    frag_count: torch.Tensor      # [M] contributing (entry, pixel) pairs
+    err_sum: torch.Tensor         # [M] sum of per-fragment d_opacity
+    err_square_sum: torch.Tensor  # [M] sum of squared per-fragment d_opacity
+    grad_norm: torch.Tensor       # [M] ||d mean2d||_ndc this iteration
+
+
+def zero_stats_sink(m: int, device="cuda") -> RasterStats:
+    """Zero leaf tensors to pass as ``stats_sink`` to :func:`rasterize`;
+    after the loss's backward their ``.grad`` are the statistics."""
+    dev = resolve_device(device)
+    return RasterStats(*[torch.zeros(m, device=dev, requires_grad=True)
+                         for _ in RasterStats._fields])
+
+
+def _grad_norm(d_mean, tiles_total: int, tiles_x: int, tile_h: int,
+               tile_w: int, img_h: int, img_w: int):
+    """||d mean||_ndc: pixel gradients scaled to NDC units
+    (ndc_to_pixel: px = (x * .5 + .5) * W)."""
+    sx = 0.5 * (img_w if img_w else tiles_x * tile_w)
+    sy = 0.5 * (img_h if img_h else (tiles_total // tiles_x) * tile_h)
+    return torch.sqrt((d_mean[0] * sx) ** 2 + (d_mean[1] * sy) ** 2)
+
+
+def _stats_from(g: raster_plain.PointGrads, geom) -> RasterStats:
+    # err_sum is the reduced d_opacity: both are sum(dpw) / o per entry
+    return RasterStats(weight_sum=g.weight_sum, frag_count=g.frag_count,
+                       err_sum=g.d_opacity,
+                       err_square_sum=g.err_square_sum,
+                       grad_norm=_grad_norm(g.d_mean, *geom))
+
+
+class _Rasterize(torch.autograd.Function):
+    """Forward and backward kernels around one checked table."""
+
+    @staticmethod
+    def forward(ctx, table: BinningResult, geom, mean_pix, inv_cov, color,
+                opacity, *sink):
+        tiles_total, tiles_x, tile_h, tile_w = geom[:4]
+        args = tuple(t.detach().contiguous()
+                     for t in (mean_pix, inv_cov, color, opacity))
+        tab = (table.sorted_point, table.tile_start, table.tile_count)
+        tiles_color, tiles_trans = raster_cuda.raster_forward(
+            *args, *tab, tiles_x, tile_h, tile_w, table_checked=True)
+        ctx.save_for_backward(*args, tiles_color, tiles_trans)
+        ctx.tab, ctx.geom, ctx.with_stats = tab, geom, bool(sink)
+        return tiles_color, tiles_trans
+
+    @staticmethod
+    def backward(ctx, d_tiles_color, d_tiles_trans):
+        *args, tiles_color, tiles_trans = ctx.saved_tensors
+        tiles_total, tiles_x, tile_h, tile_w = ctx.geom[:4]
+        g = raster_cuda.raster_backward(
+            *args, *ctx.tab, tiles_x, tile_h, tile_w, tiles_color,
+            tiles_trans, d_tiles_color.contiguous(),
+            d_tiles_trans.contiguous(), with_stats=ctx.with_stats,
+            table_checked=True)
+        grads = (None, None, g.d_mean, g.d_inv_cov, g.d_color, g.d_opacity)
+        if ctx.with_stats:
+            grads += tuple(_stats_from(g, ctx.geom))
+        return grads
+
+
 def rasterize(mean_pix, inv_cov, color, opacity, table: BinningResult,
               tiles_total: int, tiles_x: int, tile_h: int, tile_w: int,
-              backend: str = "cuda"):
-    """Rasterize gaussians into tile-layout images.
+              backend: str = "cuda",
+              stats_sink: Optional[RasterStats] = None,
+              img_h: int = 0, img_w: int = 0):
+    """Rasterize gaussians into tile-layout images (differentiable).
 
     Args:
       mean_pix: [2, M] pixel-space means.
       inv_cov:  [3, M] inverse 2D covariance (a, b, c).
       color:    [C, M], C in {3, 4} (rgb [+ depth]).
       opacity:  [M] activated opacities.
-      table:    binning result.
-      backend:  'cuda' (kernel on CUDA tensors) or 'torch' (plain version).
+      table:    binning result (not differentiated).
+      backend:  'cuda' (the kernels on CUDA tensors, their plain versions
+        on CPU tensors) or 'torch' (autograd through the plain version).
+      stats_sink: optional :func:`zero_stats_sink` (``'cuda'`` backend):
+        the loss's gradient with respect to it is the RasterStats of this
+        view, from the same backward-kernel run as the parameter
+        gradients.
+      img_h/img_w: image size for the NDC ``grad_norm`` scale (defaults to
+        the tile grid's extent).
     Returns:
       (tiles_color [T, C, P], tiles_trans [T, P], None).  Tiles without
       entries come out with colour 0 and transmittance 1.
     """
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown raster backend {backend!r}")
-    if backend == "torch" or mean_pix.device.type == "cpu":
+    if backend == "torch":
+        if stats_sink is not None:
+            raise ValueError("stats_sink needs the 'cuda' backend; the "
+                             "'torch' backend takes raster_stats")
         out = raster_plain.rasterize_reference(
             mean_pix, inv_cov, color, opacity, table.sorted_point,
             table.sorted_tile, table.entry_valid, table.tile_start,
             tiles_total, tiles_x, tile_h, tile_w)
         return out.tiles_color, out.tiles_trans, None
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (mean_pix, inv_cov, color, opacity)):
-        raise NotImplementedError(
-            "the CUDA raster backward kernel is not ported yet (it comes "
-            "with the training slice); render under torch.no_grad() or use "
-            "raster_backend='torch'")
-    tiles_color, tiles_trans = raster_cuda.raster_forward(
-        mean_pix.contiguous(), inv_cov.contiguous(), color.contiguous(),
-        opacity.contiguous(), table.sorted_point, table.tile_start,
-        table.tile_count, tiles_x, tile_h, tile_w)
+    raster_cuda.check_table(table.sorted_point, table.tile_start,
+                            table.tile_count, color.shape[1])
+    sink = () if stats_sink is None else tuple(stats_sink)
+    tiles_color, tiles_trans = _Rasterize.apply(
+        table, (tiles_total, tiles_x, tile_h, tile_w, img_h, img_w),
+        mean_pix, inv_cov, color, opacity, *sink)
     return tiles_color, tiles_trans, None
+
+
+def raster_stats(mean_pix, inv_cov, color, opacity, table: BinningResult,
+                 out_tiles_color, out_tiles_trans, d_tiles_color,
+                 d_tiles_trans, tiles_total: int, tiles_x: int,
+                 tile_h: int, tile_w: int, img_h: int = 0, img_w: int = 0,
+                 backend: str = "cuda") -> RasterStats:
+    """Per-point densification statistics from a loss cotangent: the
+    explicit pass (``litegs_tpu/ops/raster.py::raster_stats``).
+
+    Takes the forward's inputs, table and outputs and the loss's cotangent
+    of the outputs.  ``backend='cuda'`` runs ``raster_cuda.raster_backward``
+    (the kernel on CUDA tensors), ``'torch'`` its plain version.
+    """
+    args = [t.detach().contiguous()
+            for t in (mean_pix, inv_cov, color, opacity)]
+    tab = (table.sorted_point, table.tile_start, table.tile_count)
+    outs = [t.detach().contiguous() for t in (
+        out_tiles_color, out_tiles_trans, d_tiles_color, d_tiles_trans)]
+    fn = (raster_cuda.raster_backward if backend == "cuda"
+          else raster_cuda.raster_backward_plain)
+    g = fn(*args, *tab, tiles_x, tile_h, tile_w, *outs, with_stats=True)
+    return _stats_from(g, (tiles_total, tiles_x, tile_h, tile_w, img_h,
+                           img_w))

@@ -1,21 +1,37 @@
-"""Raster forward on the card: the wrapper of ``csrc/raster_fwd.cu``.
+"""Raster kernels on the card: the wrappers of ``csrc/raster_fwd.cu`` and
+``csrc/raster_bwd.cu``.
 
-Replaces ``litegs_tpu/ops/raster_pallas.py::_fwd_kernel`` (launched by
-``raster_forward_pallas``).  The kernel runs one thread block per tile and
-one thread per pixel, and walks the tile's depth-sorted entries of the
-exact binning table front to back (see the source for the blend).
+:func:`raster_forward` replaces ``litegs_tpu/ops/raster_pallas.py::
+_fwd_kernel`` (launched by ``raster_forward_pallas``).  The kernel runs one
+thread block per tile and one thread per pixel, and walks the tile's
+depth-sorted entries of the exact binning table front to back (see the
+source for the blend).  What bounds it on the H100: the FP32 and exp work
+per (entry, pixel) pair -- about fifteen operations and one exponential for
+each pair walked -- while the bytes it moves are small (each entry's ten
+attribute words, each pixel's output once).  Each entry's attributes are
+loaded once per tile into shared memory and shared by all the tile's
+pixels, and a tile stops as soon as every one of its pixels has saturated
+(T <= 1/8192).
 
-What bounds it on the H100: the FP32 and exp work per (entry, pixel) pair
--- about fifteen operations and one exponential for each pair walked --
-while the bytes it moves are small (each entry's ten attribute words, each
-pixel's output once).  The design keeps the per-pair work in registers and
-shared memory: each entry's attributes are loaded once per tile into
-shared memory and shared by all the tile's pixels, and a tile stops as
-soon as every one of its pixels has saturated (T <= 1/8192).
+:func:`raster_backward` replaces ``raster_pallas.py::_bwd_kernel``
+(launched by ``raster_backward_pallas``), reduced to points.  Same grid and
+batches; each pixel re-walks its entries in forward order with its
+cotangent and forms each pair's partial gradients directly.  What bounds
+it: per (entry, pixel) pair the FP32 and exp work (about forty operations
+for a pair that contributes), and per entry the reduction of its 9-13
+partial sums across the tile's pixels (warp shuffles, then shared memory
+across warps) and their atomic adds into the per-point outputs.  The bytes
+are small.  A warp that no entry touched skips that entry's reduction, and
+the tile stops where the forward stopped.
 
-On a CPU tensor the wrapper computes the same function with the plain
-PyTorch version (:func:`raster_forward_plain`); on a CUDA tensor it
-launches the kernel or raises.
+The tables are validated once per table by :func:`check_table` (a host
+wait), not per launch: the autograd Function of ``ops/raster`` checks each
+table in its forward and passes ``table_checked=True`` to both kernels.
+
+On a CPU tensor each wrapper computes the same function with its plain
+PyTorch version (:func:`raster_forward_plain`,
+:func:`raster_backward_plain`); on a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -25,10 +41,13 @@ import functools
 import torch
 
 from . import _kernels
-from .raster_plain import rasterize_reference
+from .raster_plain import (PointGrads, raster_backward_reference,
+                           rasterize_reference)
 
-# kernel launches by raster_forward, so a run can show the kernel rendered
+# kernel launches by raster_forward / raster_backward, so a run can show
+# the kernels ran
 LAUNCHES = 0
+LAUNCHES_BWD = 0
 
 
 @functools.cache
@@ -37,6 +56,17 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.litegs_raster_forward.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.litegs_raster_forward.restype = i
+    lib.litegs_error_string.argtypes = [i]
+    lib.litegs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _kernels.library("raster_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.litegs_raster_backward.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.litegs_raster_backward.restype = i
     lib.litegs_error_string.argtypes = [i]
     lib.litegs_error_string.restype = ctypes.c_char_p
     return lib
@@ -54,9 +84,9 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_table(sorted_point, tile_start, tile_count, m: int):
-    """Tile runs inside the table and point ids inside [0, M): the kernel
-    indexes with them unchecked."""
+def check_table(sorted_point, tile_start, tile_count, m: int):
+    """Tile runs inside the table and point ids inside [0, M): the kernels
+    index with them unchecked.  One host wait."""
     if tile_start.numel() == 0:
         return
     e = sorted_point.numel()
@@ -71,37 +101,19 @@ def _check_table(sorted_point, tile_start, tile_count, m: int):
         raise ValueError(f"point ids outside [0, {m})")
 
 
-def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
-                   tile_start, tile_count, tiles_x: int, tile_h: int,
-                   tile_w: int, walked=None):
-    """Blend each tile's entries; tile layout out.
-
-    Args:
-      mean_pix [2, M], inv_cov [3, M], color [C, M] (C = 3 or 4),
-      opacity [M]: float32 per-point attributes.
-      sorted_point [E], tile_start [T], tile_count [T]: int32 binning
-        table; tile t blends entries tile_start[t] .. + tile_count[t] - 1.
-      walked: optional int32 [T, P] tensor that receives, per pixel, the
-        number of entries the kernel evaluated (CUDA only; for measuring
-        the work a frame needs).
-    Returns (tiles_color [T, C, P], tiles_trans [T, P]); a tile with no
-    entries comes out with colour 0 and transmittance 1.
-    """
-    if mean_pix.device.type == "cpu":
-        if walked is not None:
-            raise ValueError("walked is only produced by the CUDA kernel")
-        return raster_forward_plain(mean_pix, inv_cov, color, opacity,
-                                    sorted_point, tile_start, tile_count,
-                                    tiles_x, tile_h, tile_w)
+def _check_launch(mean_pix, inv_cov, color, opacity, sorted_point,
+                  tile_start, tile_count, tiles_x: int, tile_h: int,
+                  tile_w: int):
+    """The per-launch checks both kernels share: dtype, shape, device,
+    contiguity and the tile geometry.  Returns (device, C, M, T, P)."""
     if mean_pix.device.type != "cuda":
         raise ValueError(f"unsupported device {mean_pix.device}")
-    global LAUNCHES
     dev = mean_pix.device
     nchan, m = color.shape
     tiles_total = tile_start.shape[0]
     npix = tile_h * tile_w
     if nchan not in (3, 4):
-        raise ValueError(f"color has {nchan} channels; the kernel takes 3 "
+        raise ValueError(f"color has {nchan} channels; the kernels take 3 "
                          "or 4")
     if not 0 < npix <= 1024:
         raise ValueError(f"tile {tile_h}x{tile_w} exceeds 1024 pixels")
@@ -118,12 +130,44 @@ def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
     _check("tile_count", tile_count, i32, (tiles_total,), dev)
     if sorted_point.dim() != 1:
         raise ValueError("sorted_point must be 1-D")
-    _check_table(sorted_point, tile_start, tile_count, m)
+    return dev, nchan, m, tiles_total, npix
+
+
+def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
+                   tile_start, tile_count, tiles_x: int, tile_h: int,
+                   tile_w: int, walked=None, table_checked: bool = False):
+    """Blend each tile's entries; tile layout out.
+
+    Args:
+      mean_pix [2, M], inv_cov [3, M], color [C, M] (C = 3 or 4),
+      opacity [M]: float32 per-point attributes.
+      sorted_point [E], tile_start [T], tile_count [T]: int32 binning
+        table; tile t blends entries tile_start[t] .. + tile_count[t] - 1.
+      walked: optional int32 [T, P] tensor that receives, per pixel, the
+        number of entries the kernel evaluated (CUDA only; for measuring
+        the work a frame needs).
+      table_checked: the caller has run :func:`check_table` on this table.
+    Returns (tiles_color [T, C, P], tiles_trans [T, P]); a tile with no
+    entries comes out with colour 0 and transmittance 1.
+    """
+    if mean_pix.device.type == "cpu":
+        if walked is not None:
+            raise ValueError("walked is only produced by the CUDA kernel")
+        return raster_forward_plain(mean_pix, inv_cov, color, opacity,
+                                    sorted_point, tile_start, tile_count,
+                                    tiles_x, tile_h, tile_w)
+    global LAUNCHES
+    dev, nchan, m, tiles_total, npix = _check_launch(
+        mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
+        tile_count, tiles_x, tile_h, tile_w)
+    if not table_checked:
+        check_table(sorted_point, tile_start, tile_count, m)
     if walked is not None:
-        _check("walked", walked, i32, (tiles_total, npix), dev)
-    out_color = torch.empty((tiles_total, nchan, npix), dtype=f32,
+        _check("walked", walked, torch.int32, (tiles_total, npix), dev)
+    out_color = torch.empty((tiles_total, nchan, npix), dtype=torch.float32,
                             device=dev)
-    out_trans = torch.empty((tiles_total, npix), dtype=f32, device=dev)
+    out_trans = torch.empty((tiles_total, npix), dtype=torch.float32,
+                            device=dev)
     lib = _lib()
     rc = lib.litegs_raster_forward(
         mean_pix.data_ptr(), inv_cov.data_ptr(), color.data_ptr(),
@@ -137,6 +181,97 @@ def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
                            + lib.litegs_error_string(rc).decode())
     LAUNCHES += 1
     return out_color, out_trans
+
+
+def raster_backward(mean_pix, inv_cov, color, opacity, sorted_point,
+                    tile_start, tile_count, tiles_x: int, tile_h: int,
+                    tile_w: int, tiles_color, tiles_trans, d_tiles_color,
+                    d_tiles_trans, with_stats: bool = False,
+                    table_checked: bool = False) -> PointGrads:
+    """Per-point gradients of :func:`raster_forward`, and optionally its
+    fragment statistics.
+
+    Args:
+      the forward's inputs and table, as :func:`raster_forward` takes them;
+      tiles_color [T, C, P], tiles_trans [T, P]: the forward's outputs;
+      d_tiles_color [T, C, P], d_tiles_trans [T, P]: their cotangents;
+      with_stats: also return weight_sum, frag_count and err_square_sum.
+    Returns raster_plain.PointGrads.
+    """
+    if mean_pix.device.type == "cpu":
+        return raster_backward_plain(
+            mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
+            tile_count, tiles_x, tile_h, tile_w, tiles_color, tiles_trans,
+            d_tiles_color, d_tiles_trans, with_stats=with_stats)
+    global LAUNCHES_BWD
+    dev, nchan, m, tiles_total, npix = _check_launch(
+        mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
+        tile_count, tiles_x, tile_h, tile_w)
+    if npix % 32:
+        raise ValueError(f"tile {tile_h}x{tile_w}: the backward kernel "
+                         "needs a multiple of 32 pixels")
+    if not table_checked:
+        check_table(sorted_point, tile_start, tile_count, m)
+    for name, t in (("tiles_color", tiles_color),
+                    ("d_tiles_color", d_tiles_color)):
+        _check(name, t, torch.float32, (tiles_total, nchan, npix), dev)
+    for name, t in (("tiles_trans", tiles_trans),
+                    ("d_tiles_trans", d_tiles_trans)):
+        _check(name, t, torch.float32, (tiles_total, npix), dev)
+    rows = nchan + 6 + (3 if with_stats else 0)
+    grads = torch.zeros((rows, m), dtype=torch.float32, device=dev)
+    lib = _lib_bwd()
+    rc = lib.litegs_raster_backward(
+        mean_pix.data_ptr(), inv_cov.data_ptr(), color.data_ptr(),
+        opacity.data_ptr(), sorted_point.data_ptr(), tile_start.data_ptr(),
+        tile_count.data_ptr(), tiles_color.data_ptr(), tiles_trans.data_ptr(),
+        d_tiles_color.data_ptr(), d_tiles_trans.data_ptr(), grads.data_ptr(),
+        m, nchan, int(with_stats), tiles_total, tiles_x, tile_h, tile_w,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("raster backward kernel launch failed: "
+                           + lib.litegs_error_string(rc).decode())
+    LAUNCHES_BWD += 1
+    c = nchan
+    out = PointGrads(d_mean=grads[c:c + 2], d_inv_cov=grads[c + 2:c + 5],
+                     d_color=grads[:c], d_opacity=grads[c + 5])
+    if with_stats:
+        out = out._replace(weight_sum=grads[c + 6], frag_count=grads[c + 7],
+                           err_square_sum=grads[c + 8])
+    return out
+
+
+def _tile_groups(tile_start, tile_count, max_entries: int):
+    """Split the non-empty tiles into groups of at most ``max_entries``
+    entries (a single tile may exceed it).  Yields, per group, (tiles,
+    entries, sub_tile, sub_start): the group's tile ids, the table slots of
+    its entries in order, each entry's tile, and each tile's start in the
+    group's sub-table (a [T] vector)."""
+    dev = tile_start.device
+    tiles_total = tile_start.shape[0]
+    counts = tile_count.long()
+    starts = tile_start.long()
+    nonempty = torch.nonzero(counts > 0).flatten()
+    if nonempty.numel() == 0:
+        return
+    cum = torch.cumsum(counts[nonempty], 0).cpu()
+    cuts = [0]
+    while cuts[-1] < len(cum):
+        done = int(cum[cuts[-1] - 1]) if cuts[-1] else 0
+        nxt = int(torch.searchsorted(cum, done + max_entries, right=True))
+        cuts.append(max(nxt, cuts[-1] + 1))
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        tiles = nonempty[lo:hi]
+        cnt = counts[tiles]
+        seg_start = torch.cumsum(cnt, 0) - cnt
+        n = int(cnt.sum())
+        rank = torch.arange(n, device=dev) - torch.repeat_interleave(
+            seg_start, cnt)
+        sub_tile = torch.repeat_interleave(tiles, cnt)
+        entries = torch.repeat_interleave(starts[tiles], cnt) + rank
+        sub_start = torch.zeros(tiles_total, dtype=torch.long, device=dev)
+        sub_start[tiles] = seg_start
+        yield tiles, entries, sub_tile, sub_start
 
 
 def raster_forward_plain(mean_pix, inv_cov, color, opacity, sorted_point,
@@ -153,39 +288,49 @@ def raster_forward_plain(mean_pix, inv_cov, color, opacity, sorted_point,
     tiles_total = tile_start.shape[0]
     npix = tile_h * tile_w
     nchan = color.shape[0]
-    counts = tile_count.long()
-    starts = tile_start.long()
     tiles_color = torch.zeros((tiles_total, nchan, npix), dtype=color.dtype,
                               device=dev)
     tiles_trans = torch.ones((tiles_total, npix), dtype=color.dtype,
                              device=dev)
-    nonempty = torch.nonzero(counts > 0).flatten()
-    if nonempty.numel() == 0:
-        return tiles_color, tiles_trans
-    # split the non-empty tiles into groups of bounded entry count
-    cum = torch.cumsum(counts[nonempty], 0).cpu()
-    cuts = [0]
-    while cuts[-1] < len(cum):
-        done = int(cum[cuts[-1] - 1]) if cuts[-1] else 0
-        nxt = int(torch.searchsorted(cum, done + max_entries, right=True))
-        cuts.append(max(nxt, cuts[-1] + 1))
     with torch.no_grad():
-        for lo, hi in zip(cuts[:-1], cuts[1:]):
-            tiles = nonempty[lo:hi]
-            cnt = counts[tiles]
-            seg_start = torch.cumsum(cnt, 0) - cnt
-            n = int(cnt.sum())
-            rank = torch.arange(n, device=dev) - torch.repeat_interleave(
-                seg_start, cnt)
-            sub_tile = torch.repeat_interleave(tiles, cnt)
-            entries = torch.repeat_interleave(starts[tiles], cnt) + rank
-            sub_start = torch.zeros(tiles_total, dtype=torch.long,
-                                    device=dev)
-            sub_start[tiles] = seg_start
+        for tiles, entries, sub_tile, sub_start in _tile_groups(
+                tile_start, tile_count, max_entries):
             out = rasterize_reference(
                 mean_pix, inv_cov, color, opacity, sorted_point[entries],
-                sub_tile, torch.ones(n, dtype=torch.bool, device=dev),
+                sub_tile, torch.ones(len(entries), dtype=torch.bool,
+                                     device=dev),
                 sub_start, tiles_total, tiles_x, tile_h, tile_w)
             tiles_color[tiles] = out.tiles_color[tiles]
             tiles_trans[tiles] = out.tiles_trans[tiles]
     return tiles_color, tiles_trans
+
+
+def raster_backward_plain(mean_pix, inv_cov, color, opacity, sorted_point,
+                          tile_start, tile_count, tiles_x: int, tile_h: int,
+                          tile_w: int, tiles_color, tiles_trans,
+                          d_tiles_color, d_tiles_trans,
+                          with_stats: bool = False,
+                          max_entries: int = 1 << 18) -> PointGrads:
+    """The plain PyTorch version of :func:`raster_backward`.
+
+    Calls ``raster_plain.raster_backward_reference`` on groups of whole
+    tiles of at most ``max_entries`` entries each and sums the per-point
+    results over the groups.
+    """
+    dev = mean_pix.device
+    nchan, m = color.shape
+    z = functools.partial(torch.zeros, dtype=color.dtype, device=dev)
+    total = PointGrads(z((2, m)), z((3, m)), z((nchan, m)), z(m),
+                       *((z(m), z(m), z(m)) if with_stats else ()))
+    for _, entries, sub_tile, sub_start in _tile_groups(
+            tile_start, tile_count, max_entries):
+        part = raster_backward_reference(
+            mean_pix, inv_cov, color, opacity, sorted_point[entries],
+            sub_tile, torch.ones(len(entries), dtype=torch.bool, device=dev),
+            sub_start, tile_start.shape[0], tiles_x, tile_h, tile_w,
+            tiles_color, tiles_trans, d_tiles_color, d_tiles_trans,
+            with_stats=with_stats)
+        for acc, add in zip(total, part):
+            if acc is not None:
+                acc += add
+    return total

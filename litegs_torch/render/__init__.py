@@ -118,10 +118,17 @@ def estimate_view_sizes(culled: CulledGaussians, view_matrix, proj_matrix,
 
 
 def render(culled: CulledGaussians, view_matrix, proj_matrix,
-           img_h: int, img_w: int, pp: PipelineParams) -> RenderedView:
+           img_h: int, img_w: int, pp: PipelineParams,
+           stats_sink=None) -> RenderedView:
     """Project visible gaussians and rasterize one view (reference
     render/__init__.py:50-94): MVP -> transform matrix -> ray-space
-    Jacobian -> cov2d -> inverse -> binning -> raster."""
+    Jacobian -> cov2d -> inverse -> binning -> raster.  Differentiable
+    end to end.
+
+    ``stats_sink``: optional ``ops.raster.zero_stats_sink(Mv)``; the loss's
+    gradient with respect to it is the view's RasterStats (see
+    ``ops.raster.rasterize``).
+    """
     tile_h, tile_w = pp.tile_size
     tiles_x = math.ceil(img_w / tile_w)
     tiles_y = math.ceil(img_h / tile_h)
@@ -142,7 +149,8 @@ def render(culled: CulledGaussians, view_matrix, proj_matrix,
 
     tiles_color, tiles_trans, _ = raster_ops.rasterize(
         mean_pix, inv_cov, color_chan, culled.opacity, table,
-        tiles_total, tiles_x, tile_h, tile_w, backend=pp.raster_backend)
+        tiles_total, tiles_x, tile_h, tile_w, backend=pp.raster_backend,
+        stats_sink=stats_sink, img_h=img_h, img_w=img_w)
 
     img_all = um.tiles_to_img(tiles_color, img_h, img_w, tile_h, tile_w)
     img = torch.clamp(img_all[:3], 0.0, 1.0)

@@ -48,6 +48,15 @@ def visible_chunk_ids(visibility):
 def gather_chunks(arr, chunk_ids, chunk_size: int = 128):
     """Gather chunks from a flat [.., N] array -> [.., V*chunk_size]."""
     lead = arr.shape[:-1]
-    chunked = arr.reshape(*lead, -1, chunk_size)
+    # explicit chunk count: a [0, N] array (sh_rest at degree 0) leaves -1
+    # ambiguous
+    chunked = arr.reshape(*lead, arr.shape[-1] // chunk_size, chunk_size)
     out = torch.index_select(chunked, len(lead), chunk_ids)
-    return out.reshape(*lead, -1)
+    return out.reshape(*lead, chunk_ids.shape[0] * chunk_size)
+
+
+def scatter_chunk_mask(chunk_ids, num_visible: int, num_chunks: int):
+    """Boolean [num_chunks] mask marking the first ``num_visible`` ids."""
+    mask = torch.zeros(num_chunks, dtype=torch.bool, device=chunk_ids.device)
+    mask[chunk_ids[:num_visible]] = True
+    return mask

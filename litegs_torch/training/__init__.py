@@ -1,1 +1,2 @@
-from . import trainer  # noqa: F401
+from . import densify, optimizer, statistics, trainer  # noqa: F401
+from .trainer import CameraBatch, Trainer, TrainState  # noqa: F401

@@ -1,21 +1,48 @@
-"""Training orchestration -- the serving subset for now.
+"""Training orchestration: the train step, the epoch loop and the eval render.
 
-``CameraBatch``, ``camera_batch_from_frames``, ``masked_chunk_aabb`` and
-``make_eval_render`` of ``litegs_tpu/training/trainer.py``.  The train
-step, the optimizer and the epoch loop come with the training slice.
+The port of ``litegs_tpu/training/trainer.py`` (reference
+litegs/training/trainer.py:26-227).  One step runs render_preprocess ->
+render (autograd through the raster kernels) -> fused L1+SSIM loss ->
+backward -> sparse chunk Adam; densification and the Morton resort run at
+epoch boundaries on the reference's schedule.
+
+The port sizes its buffers exactly from the data: render_preprocess keeps
+exactly the visible chunks and binning emits exactly the view's entries, so
+no step can overflow a capacity and ``overflow`` stays False.  The JAX
+trainer's visible, row and entry capacities, its SizeFeedback, capacity
+buckets and overflow retry guard fixed capacities the port does not have,
+and are not carried over.  ``CapacityParams.primitive_capacity`` stays: the
+model is padded to it, so densification appends into the padded tail and
+prunes by compaction exactly as the JAX package does, with
+``active_count`` primitives live.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import math
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import config as cfg
+from ..ops import losses
+from ..ops import raster as raster_ops
 from ..render import render, render_preprocess
 from ..scene import cluster
-from ..scene.gaussians import GaussianModel
+from ..scene.gaussians import (GaussianModel, create_gaussians, pad_params,
+                               pad_to_chunk)
 from ..utils import resolve_device
+from . import densify, statistics
+from .optimizer import AdamState, LearningRates, init_adam, sparse_adam_step
+
+
+class TrainState(NamedTuple):
+    params: GaussianModel
+    adam: AdamState
+    active_count: int     # live primitives (a multiple of the chunk size)
+    step: int             # optimizer steps taken
 
 
 class CameraBatch(NamedTuple):
@@ -43,6 +70,96 @@ def masked_chunk_aabb(params: GaussianModel, active_count: int,
     return origin, extend
 
 
+def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
+                    pp: cfg.PipelineParams, caps: cfg.CapacityParams,
+                    img_h: int, img_w: int, spatial_lr_scale: float,
+                    sh_degree: int, collect_stats: bool):
+    """Build the per-iteration step for one configuration.
+
+    Returns ``step(state, stats, chunk_origin, chunk_extend, view, proj,
+    planes, center, gt_image) -> (state, stats, metrics)``.  The step
+    updates the model and its moments in place and returns the state with
+    ``step`` advanced; ``metrics`` holds device tensors (``loss``,
+    ``psnr``, ``sizes`` and, on statistics steps, ``tile_count``).
+
+    On statistics steps with the ``'cuda'`` backend the densification
+    statistics ride the same backward-kernel run as the parameter
+    gradients (the stats sink of ``ops.raster.rasterize``); the ``'torch'``
+    backend keeps the loss's cotangent of the raster outputs and runs the
+    explicit ``raster_stats`` pass, as the JAX trainer does on its jnp
+    backend.
+    """
+    if op.learnable_viewproj:
+        raise NotImplementedError(
+            "pose refinement (op.learnable_viewproj) is not ported yet: "
+            "ROADMAP Queue 1, item 11")
+    tile_h, tile_w = pp.tile_size
+    tiles_x = math.ceil(img_w / tile_w)
+    tiles_total = math.ceil(img_h / tile_h) * tiles_x
+    chunk_size = pp.cluster_size
+    use_sink = collect_stats and pp.raster_backend == "cuda"
+
+    def step(state: TrainState, stats: statistics.StatsState,
+             chunk_origin, chunk_extend, view, proj, planes, center,
+             gt_image):
+        params = state.params
+        params.zero_grad(set_to_none=True)
+        culled = render_preprocess(params, chunk_origin, chunk_extend,
+                                   planes, center, sh_degree, pp)
+        sink = (raster_ops.zero_stats_sink(culled.xyz.shape[1],
+                                           culled.xyz.device)
+                if use_sink else None)
+        out = render(culled, view, proj, img_h, img_w, pp, stats_sink=sink)
+        aux = out.aux
+        if collect_stats and not use_sink:
+            aux.tiles_color.retain_grad()
+            aux.tiles_trans.retain_grad()
+        loss = losses.fused_l1_ssim_loss(out.img, gt_image, op.lambda_dssim)
+        if op.reg_weight > 0.0:
+            loss = loss + torch.mean(culled.scale ** 2) * op.reg_weight
+        if pp.enable_transmitance:
+            loss = loss + torch.mean(torch.abs(1.0 - out.transmitance))
+        loss.backward()
+
+        chunk_mask = cluster.scatter_chunk_mask(
+            culled.chunk_ids, culled.num_visible_chunks,
+            params.capacity // chunk_size)
+        lrs = LearningRates.from_config(op, spatial_lr_scale, state.step)
+        sparse_adam_step(params, {k: v.grad for k, v in
+                                  params.fields().items()},
+                         state.adam, lrs, chunk_mask, chunk_size)
+        params.zero_grad(set_to_none=True)
+
+        if collect_stats:
+            if use_sink:
+                rstats = raster_ops.RasterStats(*[s.grad for s in sink])
+            else:
+                d_trans = aux.tiles_trans.grad
+                if d_trans is None:
+                    d_trans = torch.zeros_like(aux.tiles_trans)
+                rstats = raster_ops.raster_stats(
+                    aux.mean_pix, aux.inv_cov, aux.color_chan, aux.opacity,
+                    aux.table, aux.tiles_color, aux.tiles_trans,
+                    aux.tiles_color.grad, d_trans, tiles_total, tiles_x,
+                    tile_h, tile_w, img_h, img_w, backend=pp.raster_backend)
+            stats = statistics.update_stats(
+                stats, culled.chunk_ids, culled.valid,
+                out.primitive_visible, rstats, chunk_size)
+
+        metrics = {
+            "loss": loss.detach(),
+            "psnr": losses.psnr(out.img.detach(), gt_image),
+            "sizes": out.sizes,
+        }
+        if collect_stats:
+            # per-tile blend depth (reference update_tile_blend_count,
+            # statistic_helper.py:68-79; feeds complexity_sorted_tiles)
+            metrics["tile_count"] = aux.table.tile_count
+        return state._replace(step=state.step + 1), stats, metrics
+
+    return step
+
+
 def make_eval_render(pp: cfg.PipelineParams, img_h: int, img_w: int,
                      sh_degree: int):
     """fn(params, active_count, view, proj, planes, center) -> (img,
@@ -57,6 +174,189 @@ def make_eval_render(pp: cfg.PipelineParams, img_h: int, img_w: int,
         return out.img, out.overflow
 
     return eval_render
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Stateful loop around the step (epoch loop, schedules,
+    densification), mirroring litegs.training.start.
+
+    The model lives on the device of ``data``.  Randomness (the default
+    frame order, the densification draws) comes from a CPU
+    ``torch.Generator`` seeded with ``seed``.
+    """
+
+    lp: cfg.ModelParams
+    op: cfg.OptimizationParams
+    pp: cfg.PipelineParams
+    dp: cfg.DensifyParams
+    caps: cfg.CapacityParams
+    data: CameraBatch
+    spatial_lr_scale: float
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.op.learnable_viewproj:
+            raise NotImplementedError(
+                "pose refinement (op.learnable_viewproj) is not ported "
+                "yet: ROADMAP Queue 1, item 11")
+        if self.pp.batch_views > 1:
+            raise NotImplementedError(
+                "batched views (pp.batch_views > 1) are not ported yet: "
+                "ROADMAP Queue 1, item 12")
+        self.device = self.data.images.device
+        self.img_h = int(self.data.images.shape[2])
+        self.img_w = int(self.data.images.shape[3])
+        self.n_frames = int(self.data.images.shape[0])
+        self.total_epochs = max(int(self.op.iterations) // self.n_frames, 1)
+        self.densify_until = densify.densify_until_epoch(
+            self.dp, self.total_epochs)
+        self._step_cache = {}
+        self.generator = torch.Generator().manual_seed(self.seed)
+        # per-tile max blend count over the last statistics epoch
+        self.tile_blend_max = None
+
+    # -- setup ---------------------------------------------------------
+
+    def init_state(self, init_xyz, init_color) -> TrainState:
+        params = create_gaussians(init_xyz, init_color, self.lp.sh_degree,
+                                  device=self.device)
+        params = pad_to_chunk(params, self.pp.cluster_size)
+        self.init_points_num = params.capacity
+        params = pad_params(params, self.caps.primitive_capacity)
+        return TrainState(params=params, adam=init_adam(params),
+                          active_count=self.init_points_num, step=0)
+
+    def init_stats(self) -> statistics.StatsState:
+        return statistics.init_stats(self.caps.primitive_capacity,
+                                     self.device)
+
+    # -- helpers -------------------------------------------------------
+
+    def _sh_degree(self, epoch: int) -> int:
+        return min(epoch // 5, self.lp.sh_degree)
+
+    def is_densify_active(self, epoch: int) -> bool:
+        return (self.dp.densify_from <= epoch < self.densify_until
+                and epoch % self.dp.densification_interval == 0)
+
+    def _collect_stats(self, epoch: int) -> bool:
+        """Whether this epoch's steps collect densify statistics: the
+        densify epoch itself in taming mode; every epoch before
+        densify_until in official mode (original-3DGS accumulation)."""
+        if self.dp.densify_mode == "official":
+            return epoch < self.densify_until
+        return self.is_densify_active(epoch)
+
+    def _get_step(self, sh_degree: int, collect: bool):
+        key = (sh_degree, collect)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_step(
+                self.lp, self.op, self.pp, self.caps, self.img_h,
+                self.img_w, self.spatial_lr_scale, sh_degree, collect)
+        return self._step_cache[key]
+
+    # -- main loop -----------------------------------------------------
+
+    def run_epoch(self, state: TrainState, stats, epoch: int,
+                  frame_ids=None):
+        """Train one epoch over ``frame_ids`` (default: a permutation from
+        the Trainer's generator); returns (state, stats, mean_metrics).
+
+        Metrics stay on the device until the epoch ends: one read-back
+        per epoch.
+        """
+        sh_deg = self._sh_degree(epoch)
+        collect = self._collect_stats(epoch)
+        with torch.no_grad():
+            origin, extend = masked_chunk_aabb(
+                state.params, state.active_count, self.pp.cluster_size)
+        if frame_ids is None:
+            frame_ids = torch.randperm(self.n_frames,
+                                       generator=self.generator).tolist()
+        step_fn = self._get_step(sh_deg, collect)
+        d = self.data
+        pending = []
+        for i in frame_ids:
+            i = int(i)
+            state, stats, metrics = step_fn(
+                state, stats, origin, extend, d.view[i], d.proj[i],
+                d.planes[i], d.center[i], d.images[i])
+            pending.append(metrics)
+        got = torch.stack([torch.stack([m["loss"], m["psnr"]])
+                           for m in pending]).cpu().numpy()
+        if collect:
+            self.tile_blend_max = torch.stack(
+                [m["tile_count"] for m in pending]).amax(dim=0).cpu().numpy()
+        return state, stats, {"loss": float(np.mean(got[:, 0])),
+                              "psnr": float(np.mean(got[:, 1]))}
+
+    def epoch_boundary(self, state: TrainState, stats, epoch: int):
+        """Densification, then the Morton resort, on the reference
+        schedule (trainer.py:101-106, 201)."""
+        params, adam, active, did = densify.densify_step(
+            state.params, state.adam, stats, state.active_count, epoch,
+            self.dp, self.densify_until, self.init_points_num,
+            self.spatial_lr_scale, self.pp.cluster_size,
+            generator=self.generator)
+        if did:
+            stats = self.init_stats()
+        state = state._replace(params=params, adam=adam, active_count=active)
+        # the resort runs at the START of epoch e when
+        # (e - 1) % interval == 0; here at the end of epoch e-1
+        if self.pp.cluster_size > 0 and (
+                epoch % self.dp.densification_interval == 0):
+            params, adam = densify.spatial_refine(state.params, state.adam,
+                                                  state.active_count)
+            state = state._replace(params=params, adam=adam)
+        return state, stats
+
+    def train(self, init_xyz, init_color, test_epochs=(), log_every=1,
+              test_data: Optional[CameraBatch] = None, verbose=True):
+        state = self.init_state(init_xyz, init_color)
+        stats = self.init_stats()
+        history = []
+        t0 = time.time()
+        for epoch in range(self.total_epochs):
+            state, stats, metrics = self.run_epoch(state, stats, epoch)
+            state, stats = self.epoch_boundary(state, stats, epoch)
+            metrics["epoch"] = epoch
+            metrics["active"] = state.active_count
+            history.append(metrics)
+            if verbose and (epoch % log_every == 0
+                            or epoch == self.total_epochs - 1):
+                print(f"[epoch {epoch}] loss={metrics['loss']:.4f} "
+                      f"psnr={metrics['psnr']:.2f} "
+                      f"active={metrics['active']}", flush=True)
+            if epoch in test_epochs and test_data is not None:
+                psnr = self.evaluate(state, test_data, epoch)
+                if verbose:
+                    print(f"[epoch {epoch}] test PSNR {psnr:.2f}",
+                          flush=True)
+        if verbose:
+            print(f"training took {time.time() - t0:.1f}s "
+                  f"({self.total_epochs * self.n_frames} iterations)",
+                  flush=True)
+        return state, stats, history
+
+    def complexity_sorted_tiles(self):
+        """Tile ids in descending blend-depth order from the last
+        statistics epoch (reference statistic_helper.py:68-79), or None
+        before any statistics epoch."""
+        if self.tile_blend_max is None:
+            return None
+        return np.argsort(-self.tile_blend_max)
+
+    def evaluate(self, state: TrainState, data: CameraBatch,
+                 epoch: int) -> float:
+        eval_fn = make_eval_render(self.pp, self.img_h, self.img_w,
+                                   self._sh_degree(epoch))
+        psnrs = []
+        for i in range(data.images.shape[0]):
+            img, _ = eval_fn(state.params, state.active_count, data.view[i],
+                             data.proj[i], data.planes[i], data.center[i])
+            psnrs.append(losses.psnr(img, data.images[i]))
+        return float(torch.stack(psnrs).mean())
 
 
 def camera_batch_from_frames(cam, frames, images,

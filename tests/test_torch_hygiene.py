@@ -75,3 +75,16 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_training_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from litegs_torch.data import synthetic_train
+    from litegs_torch.ops import raster
+    from litegs_torch.training import statistics
+    for fn in (lambda: synthetic_train.make_task(n_points=8, n_frames=1),
+               lambda: statistics.init_stats(128),
+               lambda: raster.zero_stats_sink(8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()

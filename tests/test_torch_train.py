@@ -1,0 +1,297 @@
+"""litegs_torch's training step against litegs_tpu's, on CPU.
+
+* Gradients of the elementwise layer -- the projection chain with the
+  activation, SH degrees 0-3 with the colour clamp, and the fused L1+SSIM
+  loss through the image clip -- held to ``jax.grad`` at 1e-5 (max |diff|
+  / max |jax|), the bar of the reference's torch script ops.
+* ``sparse_adam_step`` against JAX at 1e-6 relative, and exactly equal
+  (untouched) on invisible chunks; ``xyz_lr`` at 1e-6 relative (float32
+  arithmetic; XLA's exp and numpy's may differ in the last bit).
+* One steady step and one statistics step of ``make_train_step`` from an
+  equal state (``params_from_numpy``) against JAX ``make_train_step`` with
+  ``raster_backend="jnp"``: the port runs its ``'cuda'`` backend, whose
+  kernels take their plain versions on CPU tensors.  Parameters within
+  1e-5 of each field's largest value, both Adam moments within 1e-5
+  (max |diff| / max |jax|), statistics at the raster bars of
+  tests/test_torch_raster_bwd.py.
+
+The state is non-degenerate (random rotations, anisotropic scales): at the
+isotropic identity-quaternion init the rotation gradient is exactly zero
+and both packages return roundoff noise there.  The Adam moments start
+non-zero: from zero moments the first step moves every coordinate by
++-lr sqrt(10) whatever its gradient's size, so a gradient at roundoff
+level would decide a whole step by its sign.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from litegs_tpu import config as jcfg
+from litegs_tpu.data import synthetic_train as jst
+from litegs_tpu.ops import losses as jlosses
+from litegs_tpu.ops import projection as jproj
+from litegs_tpu.scene import gaussians as jgauss
+from litegs_tpu.training import optimizer as jopt
+from litegs_tpu.training import statistics as jstat
+from litegs_tpu.training import trainer as jtr
+from litegs_tpu.utils import sh as jsh
+
+from litegs_torch import config as tcfg
+from litegs_torch.data import synthetic_train as tst
+from litegs_torch.ops import losses as tlosses
+from litegs_torch.ops import projection as tproj
+from litegs_torch.scene import gaussians as tgauss
+from litegs_torch.training import optimizer as topt
+from litegs_torch.training import statistics as tstat
+from litegs_torch.training import trainer as ttr
+from litegs_torch.utils import sh as tsh
+
+CPU = "cpu"
+
+
+def T(x, grad=False):
+    return torch.tensor(np.asarray(x), requires_grad=grad)
+
+
+def scaled_close(got, want, atol, name=""):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    scale = np.abs(want).max() + 1e-30
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol,
+                               err_msg=name)
+
+
+def _grads_match(jfn, tfn, inputs, atol=1e-5):
+    """jax.grad of jfn and autograd of tfn, both summed against the same
+    random weights, over the same numpy inputs."""
+    out = jfn(*[jnp.asarray(x) for x in inputs])
+    w = np.random.default_rng(99).standard_normal(out.shape).astype(
+        np.float32)
+    g_j = jax.grad(lambda *a: jnp.sum(jfn(*a) * w),
+                   argnums=tuple(range(len(inputs))))(
+        *[jnp.asarray(x) for x in inputs])
+    targs = [T(x, grad=True) for x in inputs]
+    (tfn(*targs) * T(w)).sum().backward()
+    for i, (a, b) in enumerate(zip(g_j, targs)):
+        assert np.abs(np.asarray(a)).max() > 0, i
+        scaled_close(b.grad.numpy(), a, atol, f"input {i}")
+
+
+def test_projection_chain_grads_match_jax():
+    img_h, img_w = 48, 64
+    cam, frames = tst.synthetic.make_cameras(1, img_h, img_w, seed=5)
+    view, proj = frames[0].view_matrix(), cam.proj_matrix()
+    rng = np.random.default_rng(6)
+    n = 200
+    xyz = rng.uniform(-1.5, 1.5, (3, n)).astype(np.float32)
+    scale = rng.uniform(-4, -1.5, (3, n)).astype(np.float32)
+    rot = rng.normal(size=(4, n)).astype(np.float32)
+
+    def jchain(xyz, scale, rot):
+        # activation as render_preprocess applies it, then the projection
+        rot_unit = rot / jnp.maximum(
+            jnp.sqrt(jnp.sum(rot ** 2, axis=0, keepdims=True)), 1e-12)
+        v, p = jnp.asarray(view), jnp.asarray(proj)
+        view_pos, ndc = jproj.mvp_transform(jproj.homogeneous(xyz), v, p)
+        jac = jproj.rayspace_jacobian(view_pos, p, img_h, img_w)
+        inv = jproj.inverse_2x2_sym(jproj.cov2d_fused(
+            jnp.exp(scale), rot_unit, jac, v))
+        return jnp.concatenate([jproj.ndc_to_pixel(ndc, img_h, img_w), inv,
+                                view_pos[2:3]], 0)
+
+    def tchain(xyz, scale, rot):
+        rot_unit = rot / torch.clamp(
+            torch.sqrt(torch.sum(rot ** 2, dim=0, keepdim=True)), min=1e-12)
+        v, p = T(view), T(proj)
+        view_pos, ndc = tproj.mvp_transform(tproj.homogeneous(xyz), v, p)
+        jac = tproj.rayspace_jacobian(view_pos, p, img_h, img_w)
+        inv = tproj.inverse_2x2_sym(tproj.cov2d_fused(
+            torch.exp(scale), rot_unit, jac, v))
+        return torch.cat([tproj.ndc_to_pixel(ndc, img_h, img_w), inv,
+                          view_pos[2:3]], 0)
+
+    _grads_match(jchain, tchain, (xyz, scale, rot))
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_sh_and_activation_grads_match_jax(deg):
+    rng = np.random.default_rng(deg)
+    n = 64
+    k = max((deg + 1) ** 2 - 1, 1)
+    sh0 = rng.normal(size=(1, 3, n)).astype(np.float32)
+    rest = rng.normal(0.0, 0.3, (k * 3, n)).astype(np.float32)
+    dirs = rng.normal(size=(3, n))
+    dirs = (dirs / np.linalg.norm(dirs, axis=0)).astype(np.float32)
+    logit = rng.normal(size=(1, n)).astype(np.float32)
+
+    def jfn(sh0, rest, logit):
+        col = jnp.maximum(jsh.sh_to_rgb_split(deg, sh0, rest,
+                                              jnp.asarray(dirs)), 0.0)
+        return jnp.concatenate([col, jax.nn.sigmoid(logit)], 0)
+
+    def tfn(sh0, rest, logit):
+        col = torch.clamp(tsh.sh_to_rgb_split(deg, sh0, rest, T(dirs)),
+                          min=0.0)
+        return torch.cat([col, torch.sigmoid(logit)], 0)
+
+    if deg == 0:     # sh_rest takes no part at degree 0
+        _grads_match(lambda a, c: jfn(a, jnp.asarray(rest), c),
+                     lambda a, c: tfn(a, T(rest), c), (sh0, logit))
+    else:
+        _grads_match(jfn, tfn, (sh0, rest, logit))
+
+
+def test_fused_loss_grads_match_jax():
+    rng = np.random.default_rng(13)
+    raw = rng.uniform(-0.2, 1.2, (3, 30, 41)).astype(np.float32)
+    gt = rng.random((3, 30, 41)).astype(np.float32)
+    g_j = jax.grad(lambda x: jlosses.fused_l1_ssim_loss(
+        jnp.clip(x, 0.0, 1.0), jnp.asarray(gt), 0.2))(jnp.asarray(raw))
+    x = T(raw, grad=True)
+    tlosses.fused_l1_ssim_loss(torch.clamp(x, 0.0, 1.0), T(gt),
+                               0.2).backward()
+    scaled_close(x.grad.numpy(), g_j, 1e-5)
+
+
+def test_sparse_adam_matches_jax():
+    n, chunk = 512, 128
+    rng = np.random.default_rng(0)
+    shapes = {"xyz": (3, n), "scale": (3, n), "rot": (4, n),
+              "sh_0": (1, 3, n), "sh_rest": (9, n), "opacity": (1, n)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+    grads = {k: rng.standard_normal(s).astype(np.float32)
+             for k, s in shapes.items()}
+    mask = np.array([True, False, True, False])
+    op = jcfg.OptimizationParams()
+    jp = jgauss.GaussianParams(**{k: jnp.asarray(v) for k, v in p0.items()})
+    jadam = jopt.init_adam(jp)
+    tp = tgauss.params_from_numpy(p0, device=CPU)
+    tadam = topt.init_adam(tp)
+    for step in (0, 1):
+        jl = jopt.LearningRates.from_config(op, 2.5, jnp.int32(step))
+        tl = topt.LearningRates.from_config(op, 2.5, step)
+        # float32 log-lerp; XLA's exp and numpy's may differ in the last bit
+        np.testing.assert_allclose(tl.xyz, float(jl.xyz), rtol=1e-6)
+        jp, jadam = jopt.sparse_adam_step(
+            jp, jgauss.GaussianParams(**{k: jnp.asarray(v) for k, v in
+                                         grads.items()}),
+            jadam, jl, jnp.asarray(mask), chunk)
+        topt.sparse_adam_step(tp, {k: T(v) for k, v in grads.items()},
+                              tadam, tl, T(mask), chunk)
+    got = tgauss.params_to_numpy(tp)
+    for k in shapes:
+        for a, b in ((getattr(jp, k), got[k]),
+                     (getattr(jadam.exp_avg, k), tadam.exp_avg[k]),
+                     (getattr(jadam.exp_avg_sq, k), tadam.exp_avg_sq[k])):
+            a, b = np.asarray(a), np.asarray(b)
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7,
+                                       err_msg=k)
+            # invisible chunks: identical and untouched
+            np.testing.assert_array_equal(b[..., 128:256], a[..., 128:256])
+        np.testing.assert_array_equal(got[k][..., 384:], p0[k][..., 384:])
+        np.testing.assert_array_equal(tadam.exp_avg[k][..., 128:256], 0.0)
+
+
+@pytest.fixture(scope="module")
+def task():
+    """The small task of tests/test_training.py, built by both packages,
+    with a non-degenerate starting model."""
+    kw = dict(n_points=500, n_frames=2, img_h=48, img_w=64, sh_degree=1,
+              seed=3)
+    jdata, xyz, rgb = jst.make_task(**kw)
+    tdata, txyz, trgb = tst.make_task(**kw, device=CPU)
+    np.testing.assert_array_equal(txyz, xyz)
+    np.testing.assert_allclose(tdata.images.numpy(),
+                               np.asarray(jdata.images), atol=1e-4)
+    params = jgauss.pad_params(jgauss.pad_to_chunk(
+        jgauss.create_gaussians(xyz, rgb, 1), 128), 1024)
+    rng = np.random.default_rng(0)
+    p0 = {k: np.asarray(v).copy() for k, v in params._asdict().items()}
+    live = slice(0, 512)
+    p0["rot"][:, live] = rng.normal(size=(4, 512))
+    p0["scale"][:, live] += rng.uniform(-0.5, 0.8, (3, 512))
+    p0["sh_rest"][:, live] = rng.normal(0.0, 0.05, (9, 512))
+    p0["opacity"][:, live] = rng.uniform(-1.0, 2.0, (1, 512))
+    m0 = {k: rng.normal(0.0, 1e-4, v.shape).astype(np.float32)
+          for k, v in p0.items()}
+    v0 = {k: rng.uniform(1e-8, 1e-6, v.shape).astype(np.float32)
+          for k, v in p0.items()}
+    return jdata, p0, m0, v0
+
+
+@pytest.mark.parametrize("collect", [False, True])
+def test_train_step_matches_jax(task, collect):
+    jdata, p0, m0, v0 = task
+    lp = jcfg.ModelParams(sh_degree=1)
+    op = jcfg.OptimizationParams(iterations=96, position_lr_max_steps=96)
+    cap, active, step0, frame = 1024, 512, 3, 1
+    args = [np.asarray(getattr(jdata, f)[frame]) for f in
+            ("view", "proj", "planes", "center", "images")]
+
+    jparams = jgauss.GaussianParams(**{k: jnp.asarray(v)
+                                       for k, v in p0.items()})
+    jstep = jtr.make_train_step(
+        lp, op, jcfg.PipelineParams(raster_backend="jnp"),
+        jcfg.CapacityParams(cap, cap, 8192, 32768), 48, 64, 4.4, 1, collect)
+    jo, je = jtr.masked_chunk_aabb(jparams, active, 128)
+    js, jstats, _, jm = jstep(
+        jtr.TrainState(jparams, jopt.AdamState(*[
+            jgauss.GaussianParams(**{k: jnp.asarray(v) for k, v in d.items()})
+            for d in (m0, v0)]), jnp.int32(active), jnp.int32(step0)),
+        jstat.init_stats(cap), jo, je, *[jnp.asarray(a) for a in args],
+        None, jnp.int32(frame))
+
+    tparams = tgauss.params_from_numpy(p0, device=CPU)
+    tstep = ttr.make_train_step(lp, op, tcfg.PipelineParams(),
+                                tcfg.CapacityParams(cap), 48, 64, 4.4, 1,
+                                collect)
+    with torch.no_grad():
+        to, te = ttr.masked_chunk_aabb(tparams, active, 128)
+    ts, tstats, tm = tstep(
+        ttr.TrainState(tparams, topt.AdamState(*[
+            {k: T(v) for k, v in d.items()} for d in (m0, v0)]), active,
+            step0),
+        tstat.init_stats(cap, CPU), to, te, *[T(a) for a in args])
+
+    assert ts.step == int(js.step) == step0 + 1
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(tm["psnr"]), float(jm["psnr"]),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(tm["sizes"].numpy(),
+                                  np.asarray(jm["sizes"]))
+    got = tgauss.params_to_numpy(ts.params)
+    for k in p0:
+        a = np.asarray(getattr(js.params, k))
+        assert not np.array_equal(a, p0[k]), k
+        np.testing.assert_allclose(got[k], a, rtol=0.0,
+                                   atol=1e-5 * np.abs(a).max(), err_msg=k)
+        scaled_close(ts.adam.exp_avg[k].numpy(),
+                     getattr(js.adam.exp_avg, k), 1e-5, f"exp_avg {k}")
+        scaled_close(ts.adam.exp_avg_sq[k].numpy(),
+                     getattr(js.adam.exp_avg_sq, k), 1e-5, f"exp_avg_sq {k}")
+        # the inactive tail's chunks were culled: untouched
+        for a, b in ((got[k], p0[k]), (ts.adam.exp_avg[k].numpy(), m0[k]),
+                     (ts.adam.exp_avg_sq[k].numpy(), v0[k])):
+            np.testing.assert_array_equal(a[..., active:], b[..., active:])
+    if not collect:
+        assert "tile_count" not in tm
+        return
+    np.testing.assert_array_equal(tm["tile_count"].numpy(),
+                                  np.asarray(jm["tile_count"]))
+    s_t = {f: getattr(tstats, f).numpy() for f in tstat.StatsState._fields}
+    s_j = {f: np.asarray(getattr(jstats, f)) for f in
+           jstat.StatsState._fields}
+    np.testing.assert_array_equal(s_t["visible_count"], s_j["visible_count"])
+    np.testing.assert_allclose(s_t["weight_sum"], s_j["weight_sum"],
+                               atol=2e-3)
+    np.testing.assert_allclose(s_t["frag_count"], s_j["frag_count"],
+                               atol=0.5)
+    scaled_close(s_t["weight_sq_sum"], s_j["weight_sq_sum"], 1e-3)
+    scaled_close(s_t["err_sum"], s_j["err_sum"], 2e-4)
+    scaled_close(s_t["err_sq_sum"], s_j["err_sq_sum"], 1e-3)
+    scaled_close(s_t["grad_norm_sum"], s_j["grad_norm_sum"], 2e-3)
+    assert s_t["frag_count"].sum() > 0
