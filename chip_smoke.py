@@ -8,23 +8,33 @@ stops the script with a nonzero exit when it fails:
   0. versions and the card's name and power limit;
   1. build every kernel from litegs_torch/csrc (nvcc, sm_90a, one process
      per source, in parallel);
-  2. each kernel against its plain PyTorch version on small seeded scenes
-     at the five supported tile sizes: the raster forward at max |diff| <=
-     1e-4, the raster backward with seeded cotangents, with and without
-     statistics, at the bars in BWD_TOL;
+  2. each kernel against its plain PyTorch version: the raster kernels on
+     small seeded scenes at the five supported tile sizes (the forward at
+     max |diff| <= 1e-4, the backward with seeded cotangents, with and
+     without statistics, at the bars in BWD_TOL); the four stream_gather
+     kernels on seeded expansions and block gathers, equal exactly;
   3. the serving path at full width -- 1,000,000 gaussians, SH degree 3,
      840x1296 images, 8x16 tiles, 4 views -- through
      evaluation.prepare_model / render_views / score_split, with every
-     kernel's launch count read around that run, the forward kernel held
-     against its plain version on a sample of tiles of each view, and per
-     view times (CUDA events, median of 5 after a warm-up);
+     kernel's launch count read around that run (the default binning runs
+     expand_window_kernel twice per view and no plain expansion), the
+     forward kernel held against its plain version on a sample of tiles of
+     each view, and per view times (CUDA events, median of 5 after a
+     warm-up); then the streaming binning routes on view 0: the tables of
+     the default route, the asynchronous-copy route and the prefix route
+     identical in every field to the non-streaming table, a render through
+     each route with its launches counted, gather_blocks building the
+     128-aligned copy of the table, each stream_gather kernel's time beside
+     its plain version, one PyTorch call and its bytes bound, and the
+     binning stage timed with the streaming kernels on and off;
   4. the training path on the same scene: make_train_step from the
      sh_0-perturbed model toward the unperturbed model's renders -- steady
      steps, then statistics steps, a taming densify step and the Morton
      resort, then steps on the grown model -- with the launch counts read
      around each window; per-step times, a per-stage split of one step,
      the backward kernel alone and against its plain version on sampled
-     tiles of a real view;
+     tiles of a real view; the streaming routes again on the trained
+     model's view 0;
   5. the Trainer through its own API on the small synthetic task of
      tests/test_training.py, at that file's PSNR bars;
   6. a JSON line with one record per kernel, the card's name and power
@@ -99,6 +109,26 @@ FWD_RECORD = {"name": "raster_forward", "route": "cuda",
 BWD_RECORD = {"name": "raster_backward", "route": "cuda",
               "source": "litegs_torch/csrc/raster_bwd.cu",
               "replaces": "litegs_tpu/ops/raster_pallas.py:384"}
+SG_SOURCE = "litegs_torch/csrc/stream_gather.cu"
+SG_RECORDS = {
+    "expand_prefix_kernel": {
+        "name": "expand_prefix_kernel", "route": "cuda", "source": SG_SOURCE,
+        "replaces": "litegs_tpu/ops/stream_gather.py:68"},
+    "expand_window_kernel": {
+        "name": "expand_window_kernel", "route": "cuda", "source": SG_SOURCE,
+        "replaces": "litegs_tpu/ops/stream_gather.py:166"},
+    "expand_window_async_kernel": {
+        "name": "expand_window_async_kernel", "route": "cuda",
+        "source": SG_SOURCE,
+        "replaces": "litegs_tpu/ops/stream_gather.py:341"},
+    "gather_blocks_kernel": {
+        "name": "gather_blocks_kernel", "route": "cuda", "source": SG_SOURCE,
+        "replaces": "litegs_tpu/ops/stream_gather.py:382"},
+}
+# integer operations per output slot of an expansion beside its A copies:
+# the binary search over a window of 640-768 starts (10 steps of about 4)
+# and the rank
+OPS_PER_SLOT = 45
 
 
 def card_line() -> str:
@@ -266,6 +296,382 @@ def phase_kernels(dev, img_h: int = 96, img_w: int = 128):
     return worst, worst_bwd
 
 
+def exact_diff(got, want, what: str) -> float:
+    """max |got - want| of two tensors that must be equal exactly."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {tuple(got.shape)} {got.dtype} against "
+             f"{tuple(want.shape)} {want.dtype}")
+    if torch.equal(got, want):
+        return 0.0
+    d = float((got.double() - want.double()).abs().max())
+    fail(f"{what}: differs from the plain version, max|diff| {d}")
+
+
+def stream_cases():
+    """Seeded inputs of the expansions: (name, attrs, counts, out_len,
+    window_items, slots_per_step, counts > 0 form a prefix).  The first
+    five are the cases of tests/test_stream_gather.py."""
+    rng = np.random.default_rng(0)
+    counts = rng.integers(1, 5, 300).astype(np.int32)
+    counts[200:] = 0
+    yield ("oracle", rng.random((16, 300)).astype(np.float32), counts, 1024,
+           256, 256, True)
+    yield ("one item spanning blocks",
+           np.arange(151, dtype=np.float32)[None].repeat(8, 0),
+           np.r_[np.full(1, 200), np.ones(150)].astype(np.int32), 512, 256,
+           128, True)
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 4, 700).astype(np.int32)
+    counts[rng.random(700) < 0.4] = 0
+    total = int(counts.sum())
+    yield ("zero counts anywhere", rng.standard_normal((8, 700)).astype(
+        np.float32), counts, (total + 255) // 256 * 256 + 256, 256, 128,
+        False)
+    rng = np.random.default_rng(5)
+    counts = rng.integers(1, 5, 2000).astype(np.int32)
+    total = int(counts.sum())
+    yield ("multi-slot steps", rng.standard_normal((16, 2000)).astype(
+        np.float32), counts, (total + 511) // 512 * 512 + 512, 640, 512,
+        True)
+    yield ("all-zero counts", np.ones((4, 300), np.float32),
+           np.zeros(300, np.int32), None, 256, 256, True)
+    yield ("one item, 70,000 slots, exact length",
+           np.arange(12, dtype=np.float32)[:, None].repeat(5, 1),
+           np.array([0, 70000, 0, 0, 0], np.int32), None, 256, 512, False)
+    rng = np.random.default_rng(6)
+    yield ("int32 rows, odd sizes", rng.integers(
+        -2 ** 31, 2 ** 31 - 1, (3, 1001)).astype(np.int32),
+        rng.integers(1, 90, 1001).astype(np.int32), 30001, 384, 200, True)
+
+
+def phase_stream_kernels(dev):
+    """The four stream_gather kernels against their plain versions on
+    seeded cases, equal exactly; returns the largest difference seen per
+    kernel (0.0, or the script has stopped)."""
+    import torch
+    from litegs_torch.ops import stream_gather as sg
+    worst = dict.fromkeys(sg.LAUNCHES, 0.0)
+    for name, attrs, counts, out_len, window, step, prefix in stream_cases():
+        attrs = torch.from_numpy(attrs).to(dev)
+        counts = torch.from_numpy(counts).to(dev)
+        want = sg.expand_attrs_windowed_plain(attrs, counts, out_len, window,
+                                              step)
+        total = int(want[2])
+        live = min(total, want[0].shape[1])
+        if not bool(want[3]):
+            fail(f"stream case {name}: its window does not hold")
+        runs = {"expand_window_kernel": lambda: sg.expand_attrs_windowed(
+                    attrs, counts, out_len, window, step),
+                "expand_window_async_kernel":
+                    lambda: sg.expand_attrs_windowed(
+                        attrs, counts, out_len, window, step, dma=True)}
+        if prefix:
+            runs["expand_prefix_kernel"] = lambda: sg.expand_attrs(
+                attrs, counts, out_len)
+        for kernel, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            if int(got[2]) != total or (len(got) == 4 and not bool(got[3])):
+                fail(f"{kernel} on {name}: total {int(got[2])} ok "
+                     f"{got[3:]} against total {total}")
+            what = f"{kernel} on {name}"
+            worst[kernel] = max(
+                worst[kernel],
+                exact_diff(got[0][:, :live], want[0][:, :live], what),
+                exact_diff(got[1][:live], want[1][:live], what + " rank"))
+        print(f"stream kernel case {name:38s} rows={attrs.shape[0]} "
+              f"items={attrs.shape[1]} slots={want[0].shape[1]} "
+              f"live={live}: {', '.join(runs)} equal to plain")
+    # the window check: a run of empty items longer than the window
+    counts = torch.zeros(1024, dtype=torch.int32, device=dev)
+    counts[0], counts[600] = 1, 300
+    attrs = torch.arange(8 * 1024, dtype=torch.float32,
+                         device=dev).reshape(8, 1024)
+    for dma in (False, True):
+        ok = sg.expand_attrs_windowed(attrs, counts, 512, 256, 128,
+                                      dma=dma)[3]
+        torch.cuda.synchronize()
+        if bool(ok):
+            fail("a window overrun was not flagged")
+    rng = np.random.default_rng(1)
+    for dtype, n in ((np.float32, 700), (np.int32, 129)):
+        attrs = torch.from_numpy(
+            (rng.random((8, n)) * 1000).astype(dtype)).to(dev)
+        src_lo = torch.from_numpy(np.r_[
+            np.sort(rng.integers(0, n - 1, 4)), n - 40, n + 500, -3
+        ].astype(np.int32)).to(dev)
+        got = sg.gather_blocks(attrs, src_lo)
+        torch.cuda.synchronize()
+        worst["gather_blocks_kernel"] = max(
+            worst["gather_blocks_kernel"],
+            exact_diff(got, sg.gather_blocks_plain(attrs, src_lo),
+                       f"gather_blocks_kernel {dtype.__name__} S={n}"))
+    print("stream kernel cases: overrun flagged by both window kernels; "
+          "gather_blocks_kernel equal to plain on float32 and int32 rows")
+    return worst
+
+
+def check_stream_counts(what: str, launches: dict, plain_calls: int,
+                        views: int):
+    """The default binning route: expand_window_kernel twice per view, no
+    other stream_gather kernel and no plain expansion."""
+    others = {k: v for k, v in launches.items()
+              if v and k != "expand_window_kernel"}
+    if launches["expand_window_kernel"] != 2 * views or others:
+        fail(f"{what}: expand_window_kernel launched "
+             f"{launches['expand_window_kernel']} times for {views} views "
+             f"(2 each expected), other stream_gather kernels {others}")
+    if plain_calls != 0:
+        fail(f"{what}: the plain expansions ran {plain_calls} times")
+
+
+def view_binning_inputs(params, active, batch, i, sh_degree, pp):
+    """The arguments build_tile_table gets for view i of the batch."""
+    import torch
+    from litegs_torch.render import _project, render_preprocess
+    from litegs_torch.training.trainer import masked_chunk_aabb
+    img_h, img_w = batch.images.shape[-2:]
+    with torch.no_grad():
+        origin, extend = masked_chunk_aabb(params, active, pp.cluster_size)
+        culled = render_preprocess(params, origin, extend, batch.planes[i],
+                                   batch.center[i], sh_degree, pp)
+        view_pos, ndc, inv_cov = _project(culled, batch.view[i],
+                                          batch.proj[i], img_h, img_w)
+    return (ndc.detach(), view_pos[2].detach(), inv_cov.detach(),
+            culled.opacity.detach(), culled.valid, img_h, img_w,
+            *pp.tile_size)
+
+
+def kernel_device_ms(fn, kernel: str, repeats: int = REPEATS):
+    """Mean device milliseconds of the kernel named ``kernel`` alone, over
+    ``repeats`` calls of ``fn`` under torch.profiler (``fn`` also runs its
+    wrapper's torch ops, which time_ms includes and this leaves out).  The
+    script stops if the profiler reports no such kernel: the call's time is
+    no stand-in for the kernel's."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.self_device_time_total for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.key]
+    if not us or sum(us) <= 0:
+        fail(f"torch.profiler reported no device time for {kernel}")
+    return sum(us) / repeats / 1e3
+
+
+def bytes_bound(nbytes: int, ops: int):
+    ms = 1e3 * max(ops / PEAK_FP32, nbytes / PEAK_BYTES)
+    return ms, ("operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES
+                else "bytes")
+
+
+def phase_stream_routes(dev, label: str, params, active: int, batch,
+                        sh_degree: int, timed: bool):
+    """The streaming binning routes at full width on view 0: every route's
+    table identical to the non-streaming table with its launches counted,
+    the window check's margin, a view that emits no row, gather_blocks
+    building the table's 128-aligned copy, and (``timed``) each kernel's
+    numbers.  Returns
+    ({kernel: launches counted here}, {kernel: record} when timed)."""
+    import torch
+    from litegs_torch import config
+    from litegs_torch.ops import binning
+    from litegs_torch.ops import stream_gather as sg
+
+    pp = config.PipelineParams()
+    args = view_binning_inputs(params, active, batch, 0, sh_degree, pp)
+
+    # ---- every route's table against the non-streaming table, with its ----
+    # ---- launches counted (this slice's own path: the routes are reached
+    # only through build_tile_table's argument); the default route's
+    # expansion inputs are kept for the timings ----
+    off = binning.build_tile_table(*args, stream=False)
+    seen = []
+    real = sg.expand_attrs_windowed
+
+    def spy(attrs, counts, *a, **k):
+        seen.append((attrs, counts, k["window_items"], k["slots_per_step"]))
+        return real(attrs, counts, *a, **k)
+
+    launches = dict.fromkeys(sg.LAUNCHES, 0)
+    for route, expect in (
+            (True, {"expand_window_kernel": 2}),
+            ("async", {"expand_window_async_kernel": 2}),
+            ("prefix", {"expand_prefix_kernel": 1,
+                        "expand_window_kernel": 1})):
+        if route is True:
+            sg.expand_attrs_windowed = spy
+        sg.reset_counts()
+        try:
+            on = binning.build_tile_table(*args, stream=route)
+        finally:
+            sg.expand_attrs_windowed = real
+        got = {k: v for k, v in sg.LAUNCHES.items() if v}
+        if got != expect or sg.PLAIN_CALLS:
+            fail(f"{label}: build_tile_table(stream={route!r}) launched "
+                 f"{got} and made {sg.PLAIN_CALLS} plain calls")
+        if route is not True:      # the default route counts on its own path
+            for k, v in got.items():
+                launches[k] += v
+        for field in off._fields:
+            a, b = getattr(off, field), getattr(on, field)
+            same = torch.equal(a, b) if torch.is_tensor(a) else a == b
+            if not same:
+                fail(f"{label}: table field {field} of stream={route!r} "
+                     "differs from the non-streaming table")
+    print(f"{label} view 0: rows={off.num_rows} entries={off.num_entries}; "
+          "tables of stream=True / 'async' / 'prefix' identical to "
+          "stream=False in every field")
+
+    # ---- the margin of the window check: the most items any step's ----
+    # ---- owners span, beside what the window holds ----
+    for n, (attrs, counts, window, step) in enumerate(seen, 1):
+        cum = torch.cumsum(counts, 0)
+        lo, hi = sg.step_owners(cum, cum[-1], int(cum[-1]), step)
+        span = int((hi - lo).max())
+        empty = int((counts[:int(hi.max()) + 1] == 0).sum())
+        print(f"{label} expansion {n}: largest owner span of a {step}-slot "
+              f"step {span} items, the window check allows {window}; "
+              f"{empty} items with count 0 before the last owner")
+        if span > window:
+            fail(f"{label} expansion {n}: span {span} > window {window}")
+
+    # ---- a view whose points survive culling and emit no tile row: ----
+    # ---- every route returns the empty table and launches nothing ----
+    none_valid = (*args[:4], torch.zeros_like(args[4]), *args[5:])
+    for route in (None, False, True, "async", "prefix"):
+        sg.reset_counts()
+        table = binning.build_tile_table(*none_valid, stream=route)
+        if (table.num_rows or table.num_entries or table.sorted_point.numel()
+                or int(table.tile_count.sum()) or sg.PLAIN_CALLS
+                or any(sg.LAUNCHES.values())):
+            fail(f"{label}: a view without rows, stream={route!r}: "
+                 f"rows={table.num_rows} entries={table.num_entries} "
+                 f"launches={sg.LAUNCHES} plain calls={sg.PLAIN_CALLS}")
+    print(f"{label} view 0 with no valid point: the empty table from the "
+          "default route and from every other")
+
+    # ---- the 128-aligned copy of the table ----
+    blocks = (off.tile_count + 127) // 128
+    src_lo = (torch.repeat_interleave(off.tile_start, blocks)
+              + 128 * (torch.arange(int(blocks.sum()), device=dev)
+                       - torch.repeat_interleave(
+                           torch.cumsum(blocks, 0) - blocks, blocks))
+              ).to(torch.int32)
+    table_row = off.sorted_point[None]
+    sg.reset_counts()
+    aligned = sg.gather_blocks(table_row, src_lo)
+    launches["gather_blocks_kernel"] += sg.LAUNCHES["gather_blocks_kernel"]
+    if sg.PLAIN_CALLS or launches["gather_blocks_kernel"] != 1:
+        fail(f"{label}: gather_blocks did not launch its kernel once")
+    worst = dict.fromkeys(sg.LAUNCHES, 0.0)
+    worst["gather_blocks_kernel"] = exact_diff(
+        aligned, sg.gather_blocks_plain(table_row, src_lo),
+        f"{label}: gather_blocks_kernel on the table's aligned copy")
+    print(f"{label} view 0: aligned copy of sorted_point: "
+          f"{src_lo.numel()} blocks of 128 equal to plain; launches "
+          f"counted here {launches}")
+
+    # ---- the binning stage with the streaming kernels on and off ----
+    t_on = [time_ms(lambda: binning.build_tile_table(*args, stream=True))]
+    t_off = [time_ms(lambda: binning.build_tile_table(*args, stream=False))]
+    t_off.append(time_ms(
+        lambda: binning.build_tile_table(*args, stream=False)))
+    t_on.append(time_ms(lambda: binning.build_tile_table(*args, stream=True)))
+    print(f"{label} view 0: binning stage (CUDA events, median of "
+          f"{REPEATS}, order on/off/off/on) stream on "
+          f"{t_on[0]:.3f} / {t_on[1]:.3f} ms, stream off {t_off[0]:.3f} / "
+          f"{t_off[1]:.3f} ms")
+    if not timed:
+        return launches, None
+
+    # ---- each kernel at the shapes of the two expansions ----
+    records = {}
+    for n, (attrs, counts, window, step) in enumerate(seen, 1):
+        a, items = attrs.shape
+        want = sg.expand_attrs_windowed_plain(attrs, counts, None, window,
+                                              step)
+        slots = want[0].shape[1]
+        nbytes = 4 * (a * items + items + (a + 1) * slots)
+        bound_ms, bound_by = bytes_bound(nbytes, OPS_PER_SLOT * slots)
+        # timed with the length given, so that no call waits on the host
+        runs = {
+            "expand_prefix_kernel": lambda: sg.expand_attrs(attrs, counts,
+                                                            slots),
+            "expand_window_kernel": lambda: sg.expand_attrs_windowed(
+                attrs, counts, slots, window, step),
+            "expand_window_async_kernel": lambda: sg.expand_attrs_windowed(
+                attrs, counts, slots, window, step, dma=True)}
+        plain_ms = time_ms(lambda: sg.expand_attrs_windowed_plain(
+            attrs, counts, slots, window, step))
+        library_ms = time_ms(lambda: torch.repeat_interleave(
+            attrs, counts, dim=1, output_size=slots))
+
+        def prelude():
+            cum, _, total, _ = sg._prefix(attrs, counts, slots)
+            sg._window_plan(cum, total, slots, window, step)
+
+        prelude_ms = time_ms(prelude)
+        line = []
+        for kernel, run in runs.items():
+            got = run()
+            what = f"{label}: {kernel} on expansion {n}"
+            worst[kernel] = max(worst[kernel],
+                                exact_diff(got[0], want[0], what),
+                                exact_diff(got[1], want[1], what + " rank"))
+            call_ms = time_ms(run)
+            ms = kernel_device_ms(run, kernel)
+            line.append(f"{kernel} {ms:.4f} ms alone, {call_ms:.4f} ms its "
+                        "call")
+            # the record of the prefix kernel is the first expansion (where
+            # its contract holds and the 'prefix' route runs it), of the
+            # window kernels the second and larger one
+            if (n == 1) == (kernel == "expand_prefix_kernel"):
+                records[kernel] = dict(
+                    SG_RECORDS[kernel], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
+        print(f"{label} expansion {n}: rows={a} items={items} slots={slots}"
+              f" window={window}+128 step={step} bytes={nbytes} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}); "
+              + ", ".join(line) + f" (a call adds its wrapper's torch ops:"
+              f" the prefix sum and, for the window kernels, the steps' "
+              f"owner search, {prelude_ms:.4f} ms); plain {plain_ms:.4f} ms; "
+              f"torch.repeat_interleave {library_ms:.4f} ms")
+    nb = src_lo.numel()
+    idx = (src_lo.long()[:, None]
+           + torch.arange(128, device=dev)).flatten().clamp(
+               max=table_row.shape[1] - 1)
+    nbytes = 4 * (table_row.numel() + nb + nb * 128)
+    bound_ms, bound_by = bytes_bound(nbytes, nb * 128)
+    call_ms = time_ms(lambda: sg.gather_blocks(table_row, src_lo))
+    ms = kernel_device_ms(lambda: sg.gather_blocks(table_row, src_lo),
+                          "gather_blocks_kernel")
+    records["gather_blocks_kernel"] = dict(
+        SG_RECORDS["gather_blocks_kernel"],
+        ms=ms,
+        plain_ms=time_ms(lambda: sg.gather_blocks_plain(table_row, src_lo)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: table_row[:, idx]))
+    r = records["gather_blocks_kernel"]
+    print(f"{label} aligned copy: rows=1 items={table_row.shape[1]} "
+          f"blocks={nb} bytes={nbytes} bound_ms={bound_ms:.4f} ({bound_by})"
+          f"; gather_blocks_kernel {r['ms']:.4f} ms alone, {call_ms:.4f} "
+          f"ms its call (with the offsets' clamp); plain "
+          f"{r['plain_ms']:.4f} ms; one indexing call "
+          f"{r['library_ms']:.4f} ms")
+    for kernel, rec in records.items():
+        rec["max_abs_err"] = worst[kernel]
+    return launches, records
+
+
 def make_scene(dev, n_points: int, sh_degree: int):
     import torch
     from litegs_torch.data import synthetic
@@ -303,6 +709,7 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
     from litegs_torch import config, evaluation
     from litegs_torch.data import synthetic
     from litegs_torch.ops import raster_cuda, raster_plain
+    from litegs_torch.ops import stream_gather as sg
     from litegs_torch.render import render, render_preprocess
     from litegs_torch.training.trainer import (camera_batch_from_frames,
                                                make_eval_render,
@@ -325,6 +732,7 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
         torch.cuda.reset_peak_memory_stats()
     raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
     raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
+    sg.reset_counts()
     t0 = time.perf_counter()
     gt = torch.stack([img for _, img in evaluation.render_views(
         prepared, active, blank, pp, sh_degree)])
@@ -334,12 +742,14 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
     wall = time.perf_counter() - t0
     launches, launches_bwd = raster_cuda.LAUNCHES, raster_cuda.LAUNCHES_BWD
     plain_calls = raster_plain.CALLS + raster_plain.BACKWARD_CALLS
+    sg_launches, sg_plain = dict(sg.LAUNCHES), sg.PLAIN_CALLS
     views_rendered = n_views + s_pert["n_views"] + s_self["n_views"]
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else 0)
     print(f"serving path: {views_rendered} views rendered in {wall:.2f} s; "
           f"raster_forward launches={launches}, raster_backward "
-          f"launches={launches_bwd}, plain calls={plain_calls}")
+          f"launches={launches_bwd}, plain calls={plain_calls}; "
+          f"stream_gather launches={sg_launches}, plain calls={sg_plain}")
     print(f"score perturbed sh_0: {json.dumps(s_pert)}")
     print(f"score self: {json.dumps(s_self)}")
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
@@ -353,6 +763,8 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
     if plain_calls != 0:
         fail(f"the plain raster versions ran {plain_calls} times on the "
              "serving path")
+    check_stream_counts("serving path", sg_launches, sg_plain,
+                        views_rendered)
     if not s_self["psnr"] >= 60.0:
         fail(f"self-score PSNR {s_self['psnr']} < 60 dB")
     if not (np.isfinite(s_pert["psnr"]) and 5.0 < s_pert["psnr"] < 60.0
@@ -428,7 +840,7 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None)
     record["max_abs_err"] = worst
-    return record, batch
+    return record, batch, sg_launches["expand_window_kernel"]
 
 
 def chunk_snapshot(state, chunks, chunk_size: int):
@@ -444,11 +856,14 @@ def chunk_snapshot(state, chunks, chunk_size: int):
 
 def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     """Train at full width through make_train_step; returns (forward
-    launches, backward kernel record)."""
+    launches, backward kernel record, expand_window_kernel launches of the
+    training windows, the launches the streaming-route checks counted on
+    the trained model)."""
     import torch
     from litegs_torch import config, evaluation
     from litegs_torch.ops import binning, losses, raster, raster_cuda
     from litegs_torch.ops import raster_plain
+    from litegs_torch.ops import stream_gather as sg
     from litegs_torch.ops.projection import ndc_to_pixel
     from litegs_torch.render import _project, render, render_preprocess
     from litegs_torch.scene import pad_params
@@ -518,18 +933,22 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     def zero_counts():
         raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
         raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
+        sg.reset_counts()
 
     def read_counts(steps: int, what: str):
         fwd, bwd = raster_cuda.LAUNCHES, raster_cuda.LAUNCHES_BWD
         plain = raster_plain.CALLS + raster_plain.BACKWARD_CALLS
         print(f"{what}: {steps} steps; raster_forward launches={fwd}, "
-              f"raster_backward launches={bwd}, plain calls={plain}")
+              f"raster_backward launches={bwd}, plain calls={plain}; "
+              f"stream_gather launches={sg.LAUNCHES}, plain calls="
+              f"{sg.PLAIN_CALLS}")
+        check_stream_counts(what, sg.LAUNCHES, sg.PLAIN_CALLS, steps)
         if fwd != steps or bwd != steps:
             fail(f"{what}: kernels launched {fwd} / {bwd} times for "
                  f"{steps} steps")
         if plain != 0:
             fail(f"{what}: the plain raster versions ran {plain} times")
-        return fwd, bwd
+        return fwd, bwd, sg.LAUNCHES["expand_window_kernel"]
 
     # ---- window A: steady steps ----
     torch.cuda.reset_peak_memory_stats()
@@ -537,7 +956,8 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     zero_counts()
     state, _, loss_a = run(state, None, steady, STEADY_STEPS, step_ms,
                            check_culled=True)
-    fwd_a, bwd_a = read_counts(STEADY_STEPS, "training steady window")
+    fwd_a, bwd_a, win_a = read_counts(STEADY_STEPS,
+                                      "training steady window")
     psnr1 = evaluation.score_split(state.params, active, batch, pp,
                                    sh_degree)["psnr"]
     first, last = float(loss_a[:4].mean()), float(loss_a[-4:].mean())
@@ -566,8 +986,8 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     densify_s = time.perf_counter() - t0
     state = state._replace(params=params, adam=adam, active_count=grown)
     state, _, loss_g = run(state, None, steady, GROWN_STEPS)
-    fwd_b, bwd_b = read_counts(STATS_STEPS + GROWN_STEPS,
-                               "training stats/densify window")
+    fwd_b, bwd_b, win_b = read_counts(STATS_STEPS + GROWN_STEPS,
+                                      "training stats/densify window")
     peak = torch.cuda.max_memory_allocated()
     print(f"statistics: frag_count total {float(stats.frag_count.sum()):.0f}"
           f", points with weight {int((stats.weight_sum > 0).sum())}; "
@@ -636,7 +1056,7 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     total = sum(ms for _, ms in split)
     print("step stages (view 0, CUDA events): " + ", ".join(
         f"{name} {ms:.3f} ms" for name, ms in split)
-        + f"; sum {total:.3f} ms")
+        + f"; sum {total:.3f} ms (binning: the default streaming route)")
 
     # ---- the device's busy share over one epoch of steps ----
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -725,7 +1145,10 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     record = dict(BWD_RECORD, launches=bwd_a + bwd_b, ms=bwd_ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                   library_ms=None, max_abs_err=worst)
-    return fwd_a + fwd_b, record
+    route_launches, _ = phase_stream_routes(
+        dev, "trained model", state.params, state.active_count, batch,
+        sh_degree, timed=False)
+    return fwd_a + fwd_b, record, win_a + win_b, route_launches
 
 
 def phase_trainer(dev):
@@ -780,6 +1203,7 @@ def main() -> int:
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
     worst_fwd, worst_bwd = phase_kernels(dev)
+    worst_sg = phase_stream_kernels(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = make_scene(dev, N_POINTS, SH_DEGREE)
@@ -789,18 +1213,34 @@ def main() -> int:
     print(f"scene: {prepared.capacity} gaussians (SH {SH_DEGREE}), "
           f"{N_VIEWS} views {IMG_H}x{IMG_W}, set-up "
           f"{time.perf_counter() - t0:.1f} s")
-    fwd, batch = phase_serving(dev, prepared, active, IMG_H, IMG_W, N_VIEWS,
-                               SH_DEGREE)
+    fwd, batch, win_serving = phase_serving(dev, prepared, active, IMG_H,
+                                            IMG_W, N_VIEWS, SH_DEGREE)
     t0 = time.perf_counter()
-    fwd_launches, bwd = phase_training(dev, prepared, active, batch,
-                                      SH_DEGREE)
+    sg_launches, sg_records = phase_stream_routes(
+        dev, "serving scene", prepared, active, batch, SH_DEGREE, timed=True)
+    print(f"streaming routes phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fwd_launches, bwd, win_training, sg_trained = phase_training(
+        dev, prepared, active, batch, SH_DEGREE)
     print(f"training phase {time.perf_counter() - t0:.1f} s")
     phase_trainer(dev)
     fwd["launches"] = fwd_launches
     fwd["max_abs_err"] = max(fwd["max_abs_err"], worst_fwd)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], worst_bwd)
+    # launches: expand_window_kernel on the serving and training paths (the
+    # default route); the other three in the streaming-route phases, whose
+    # tables and aligned copies are this slice's own path
+    for kernel, rec in sg_records.items():
+        rec["launches"] = sg_launches[kernel] + sg_trained[kernel]
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst_sg[kernel])
+    sg_records["expand_window_kernel"]["launches"] = (win_serving
+                                                      + win_training)
+    for rec in (fwd, bwd, *sg_records.values()):
+        if not rec["launches"] > 0:
+            fail(f"{rec['name']} was never launched on its path")
     torch.cuda.synchronize()
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(json.dumps({"kernels": [fwd, bwd, *(
+        sg_records[k] for k in SG_RECORDS)]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,11 @@ Differences from the JAX package:
 
 * ``PipelineParams.raster_backend`` is ``'cuda'`` (the hand-written Hopper
   kernels, the default) or ``'torch'`` (the plain PyTorch version).
-* The TPU-only module constants ``RASTER_BLOCK``, ``RASTER_MXU_MODE`` and
-  ``BINNING_STREAM`` are not ported: they size the Pallas kernels' 128-entry
-  blocks, choose which blend stages run on the TPU's matrix unit, and select
-  the streaming binning expansion.  None of them has a meaning here.
+* The TPU-only module constants ``RASTER_BLOCK`` and ``RASTER_MXU_MODE`` are
+  not ported: they size the Pallas kernels' 128-entry blocks and choose
+  which blend stages run on the TPU's matrix unit, and have no meaning
+  here.  ``BINNING_STREAM`` is ported as a module constant and is on by
+  default; it reads no environment variable.
 * The render path sizes its buffers exactly from the data, so it takes no
   :class:`CapacityParams`; the class stays for the training slice, which
   keeps the overflow-safe step of the JAX trainer.
@@ -20,6 +21,16 @@ from __future__ import annotations
 
 import dataclasses
 from argparse import ArgumentParser
+
+# Binning expansion backend on CUDA tensors: the hand-written streaming
+# kernels of ops/stream_gather (the counterpart of the reference's
+# prefix-sum + emit, binning.cu:33-110) against torch.repeat_interleave and
+# a row gather.  A bool, as in the JAX package: True runs both expansions
+# through expand_attrs_windowed, False turns the streaming path off.  Read
+# at each call of ops/binning.build_tile_table, whose ``stream`` argument
+# overrides it (and reaches the other kernels' routes by name).  CPU tensors
+# never stream by default.
+BINNING_STREAM = True
 
 
 @dataclasses.dataclass(frozen=True)

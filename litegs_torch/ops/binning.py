@@ -1,15 +1,19 @@
 """Tile binning: build the per-tile depth-sorted gaussian table.
 
-The non-streaming path of ``litegs_tpu/ops/binning.py``, with buffers sized
-exactly from the data:
+The counterpart of ``litegs_tpu/ops/binning.py``, with buffers sized exactly
+from the data:
 
   1. the same visibility test and closed-form exact ellipse/tile-row
      intersection (speedy-splat's AccuTile slab walk, evaluated per
      (point, tile-row) pair), with the row range tightened to rows whose
      clipped x-span is nonempty;
   2. a stable depth sort of the points;
-  3. two expansions, point -> (point, tile-row) -> (point, tile), by
-     ``torch.repeat_interleave``;
+  3. two expansions, point -> (point, tile-row) -> (point, tile).  The
+     streaming configuration (``stream``, the default on CUDA tensors:
+     ``config.BINNING_STREAM``) replicates each stage's payload through the
+     hand-written kernels of ``ops/stream_gather``; the other one decodes
+     owners with :func:`expand_with_table` (``torch.repeat_interleave`` and
+     one row gather).  Both give the same table, entry for entry;
   4. a stable sort by tile, so each tile's entries are contiguous and in
      depth order.
 
@@ -24,6 +28,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from .. import config
+from . import stream_gather
 
 # float -> int32 conversions saturate here first: torch's cast of an
 # out-of-range float is undefined, XLA's saturates
@@ -173,9 +180,85 @@ def estimate_table_sizes(ndc, view_z, inv_cov2d, opacity, valid_mask,
                         n_entries.to(torch.int32)])
 
 
+def expand_by_counts(counts):
+    """Decode flat slots of a variable-length concatenation.
+
+    Given per-item counts, slot e of the concatenation belongs to item
+    ``owner[e]`` at ``rank[e]``.  The output is exactly as long as the
+    total.  One host read (the total).
+
+    Returns (owner [total] int32, rank [total] int32, total int).
+    """
+    m = counts.shape[0]
+    dev = counts.device
+    cum = torch.cumsum(counts, 0)
+    total = int(cum[-1]) if m else 0
+    owner = torch.repeat_interleave(
+        torch.arange(m, dtype=torch.int32, device=dev), counts,
+        output_size=total)
+    slots = torch.arange(total, dtype=torch.int32, device=dev)
+    starts = (cum - counts).to(torch.int32)
+    rank = slots - starts[owner]
+    return owner, rank, total
+
+
+def expand_with_table(counts, table):
+    """:func:`expand_by_counts` plus the fetch of per-item payload columns
+    in one row gather.
+
+    Args:
+      counts: [m] integer per-item expansion counts.
+      table: [m, K] per-item payload, any one dtype.
+    Returns (owner, rank, total, fetched [total, K]).  ``fetched`` is laid
+    out column by column (``fetched.T`` is contiguous), so that each
+    fetched column is a contiguous vector for what consumes it; a table
+    handed over as the transpose of a contiguous [K, m] tensor is read the
+    same way.
+    """
+    owner, rank, total = expand_by_counts(counts)
+    return owner, rank, total, table.T[:, owner].T
+
+
+# output slots per thread block of the streaming expansions; their item
+# windows are the step + 128 (rows: every emitting point owns >= 1 row) and
+# the step + 256 (entries: slack for rows that float32 tangency left empty)
+STREAM_STEP = 512
+STREAM_ROUTES = ("window", "async", "prefix")
+
+
+def stream_route(stream, on_cuda: bool):
+    """The streaming route ``stream`` selects, or None for the
+    non-streaming expansions.  None means ``config.BINNING_STREAM`` (a
+    bool) on CUDA tensors and off on CPU tensors; True means ``'window'``,
+    and the other routes are reached by name only."""
+    if stream is None:
+        stream = bool(config.BINNING_STREAM) if on_cuda else False
+    if stream is True:
+        return "window"
+    if not stream:
+        return None
+    if stream not in STREAM_ROUTES:
+        raise ValueError(f"stream={stream!r}: expected a bool, None or one "
+                         f"of {STREAM_ROUTES}")
+    return stream
+
+
+def _check_windows(*oks):
+    """The streaming kernels' window check.  The table's buffers are exact,
+    so there is nothing to retry with: a window that did not hold a step's
+    owners is an error.  One host read."""
+    if not bool(torch.stack(oks).all()):
+        raise RuntimeError(
+            "streaming binning: an expansion step's owners span more items "
+            "than its window holds (a long run of rows that own no tile); "
+            "set litegs_torch.config.BINNING_STREAM = False, or pass "
+            "stream=False to build_tile_table, to build the table without "
+            "the streaming kernels")
+
+
 def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
-                     img_h: int, img_w: int, tile_h: int, tile_w: int
-                     ) -> BinningResult:
+                     img_h: int, img_w: int, tile_h: int, tile_w: int,
+                     stream=None) -> BinningResult:
     """Construct the depth-sorted per-tile gaussian table.
 
     Args:
@@ -185,19 +268,30 @@ def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
       opacity:   [M] activated opacities.
       valid_mask: [M] bool, False for slots that must not render.
       img_h..tile_w: image/tile geometry.
+      stream: run the two expansions through the streaming kernels of
+        ``ops/stream_gather``.  None (the default) means
+        ``config.BINNING_STREAM`` on CUDA tensors and off on CPU tensors;
+        True or ``'window'`` runs both through ``expand_attrs_windowed``,
+        ``'async'`` through its ``dma=True`` kernel, ``'prefix'`` runs the
+        first through ``expand_attrs`` (the depth key sorts the points
+        that emit no row to the tail, so its prefix contract holds there).
+        A window overrun raises.  Every route returns the same table.
     """
     dev = ndc.device
     m = ndc.shape[-1]
     tiles_x = math.ceil(img_w / tile_w)
     tiles_y = math.ceil(img_h / tile_h)
     tiles_total = tiles_x * tiles_y
+    route = stream_route(stream, ndc.is_cuda)
 
     visible, px, py, a_s, b, c_s, disc_s, t_s = _visible_and_safe(
         ndc, view_z, inv_cov2d, opacity, valid_mask, img_h, img_w)
     _, _, rect_min_x, rect_max_x, rect_min_y, rect_max_y = \
         _ellipse_tile_rect(px, py, a_s, c_s, t_s, disc_s,
                            tile_h, tile_w, tiles_x, tiles_y)
-    # tighten the row range to rows with a nonempty clipped x-span
+    # tighten the row range to rows with a nonempty clipped x-span (every
+    # emitted row then produces >= 1 entry, what the streaming windows
+    # count on)
     y_lo, y_hi = _y_span_in_xband(
         px, py, a_s, b, c_s, t_s, disc_s,
         rect_min_x.float() * tile_w, rect_max_x.float() * tile_w)
@@ -210,32 +304,60 @@ def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
                          torch.zeros_like(row_min_y))
 
     # depth order, front to back (wrapper.py:739-742); points that emit no
-    # rows sort behind every emitting point and expand to nothing
+    # rows sort behind every emitting point and expand to nothing, so the
+    # row counts > 0 form a contiguous prefix in depth order
     z_key = torch.where(visible & (n_rows > 0), view_z,
                         torch.full_like(view_z, float("inf")))
     depth_order = torch.sort(z_key, stable=True).indices
 
-    # expansion 1: (point) -> (point, tile-row), in depth order
-    rows_sorted = n_rows[depth_order].long()
-    row_pt = torch.repeat_interleave(depth_order, rows_sorted)
-    num_rows = row_pt.shape[0]
-    row_starts = torch.cumsum(rows_sorted, 0) - rows_sorted
-    row_rank = (torch.arange(num_rows, device=dev)
-                - torch.repeat_interleave(row_starts, rows_sorted))
-    row_y = row_min_y[row_pt] + row_rank.to(torch.int32)
+    # expansion 1: (point) -> (point, tile-row), in depth order.  The
+    # per-point payload: point id, the quadratic's inputs, the point-level
+    # tile rect and the row count, as 4-byte words (float32 columns ride
+    # bitcast, nothing is re-encoded)
+    words = [c if c.dtype == torch.int32 else c.view(torch.int32)
+             for c in (torch.arange(m, dtype=torch.int32, device=dev),
+                       px, py, a_s, b, c_s, t_s, disc_s, rect_min_x,
+                       rect_max_x, row_min_y, n_rows)]
+    pt_sorted = torch.stack(words)[:, depth_order]              # [12, M]
+    oks = []
+    if route:
+        if route == "prefix":
+            r, row_rank, _ = stream_gather.expand_attrs(
+                pt_sorted, pt_sorted[11])
+        else:
+            r, row_rank, _, ok = stream_gather.expand_attrs_windowed(
+                pt_sorted, pt_sorted[11], None,
+                window_items=STREAM_STEP + 128, slots_per_step=STREAM_STEP,
+                dma=route == "async")
+            oks.append(ok)
+    else:
+        _, row_rank, _, rv = expand_with_table(pt_sorted[11], pt_sorted.T)
+        r = rv.T
+    num_rows = row_rank.shape[0]
+    f32 = torch.float32
+    row_pt = r[0]
+    r_min_x, r_max_x = r[8], r[9]
+    row_y = r[10] + row_rank
     min_tile_x, row_tiles = tile_counts_for_rows(
-        px[row_pt], py[row_pt], a_s[row_pt], b[row_pt], c_s[row_pt],
-        t_s[row_pt], disc_s[row_pt], row_y.float(), float(tile_h),
-        float(tile_w), rect_min_x[row_pt], rect_max_x[row_pt])
+        r[1].view(f32), r[2].view(f32), r[3].view(f32), r[4].view(f32),
+        r[5].view(f32), r[6].view(f32), r[7].view(f32), row_y.float(),
+        float(tile_h), float(tile_w), r_min_x, r_max_x)
 
     # expansion 2: (point, tile-row) -> (point, tile) = table entry
-    row_tiles = row_tiles.long()
-    ent_pt = torch.repeat_interleave(row_pt, row_tiles)
+    row_table = torch.stack([row_pt, row_y, min_tile_x])        # [3, R]
+    if route:
+        ev, ent_rank, _, ok = stream_gather.expand_attrs_windowed(
+            row_table, row_tiles, None,
+            window_items=STREAM_STEP + 256, slots_per_step=STREAM_STEP,
+            dma=route == "async")
+        oks.append(ok)
+        _check_windows(*oks)
+    else:
+        _, ent_rank, _, ev = expand_with_table(row_tiles, row_table.T)
+        ev = ev.T
+    ent_pt = ev[0]
+    ent_tile = ev[1] * tiles_x + ev[2] + ent_rank
     num_entries = ent_pt.shape[0]
-    g0 = (row_y * tiles_x + min_tile_x).long()
-    ent_starts = torch.cumsum(row_tiles, 0) - row_tiles
-    ent_tile = (torch.repeat_interleave(g0 - ent_starts, row_tiles)
-                + torch.arange(num_entries, device=dev))
 
     # stable sort by tile keeps each tile's entries in depth order
     sorted_tile, order = torch.sort(ent_tile, stable=True)

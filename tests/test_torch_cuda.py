@@ -13,7 +13,8 @@ right at the 1/8192 stop may fall on either side.  Backward: per-point
 gradients 3e-4 (max |diff| / max |plain|, the scaled bar of
 tests/test_raster_pallas.py), weight_sum 2e-3, frag_count 0.5 and
 err_square_sum 1e-3 scaled; the kernel adds per-entry sums with atomics
-in no fixed order and carries its prefix in float32.
+in no fixed order and carries its prefix in float32.  The four
+stream_gather kernels copy words and count ranks: tolerance 0.
 """
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from litegs_torch import config, evaluation
 from litegs_torch.data import synthetic
 from litegs_torch.data import synthetic_train
 from litegs_torch.ops import binning, raster_cuda, raster_plain
+from litegs_torch.ops import stream_gather
 from litegs_torch.scene import create_gaussians, pad_params
 from litegs_torch.training import optimizer, statistics
 from litegs_torch.training.trainer import (TrainState,
@@ -236,3 +238,163 @@ def test_train_step_kernels_vs_plain(cuda_device):
             assert (stk.weight_sum - stp.weight_sum).abs().max() <= 2e-3
             assert (stk.frag_count - stp.frag_count).abs().max() <= 0.5
             assert torch.equal(stk.visible_count, stp.visible_count)
+
+
+def expansion_cases():
+    """(name, attrs, counts, out_len, window_items, slots_per_step,
+    prefix): numpy inputs of the streaming expansions; ``prefix`` says
+    whether the counts > 0 form a prefix (expand_attrs's contract)."""
+    rng = np.random.default_rng(0)
+    counts = rng.integers(1, 5, 300).astype(np.int32)
+    counts[200:] = 0
+    yield ("prefix", rng.random((16, 300)).astype(np.float32), counts, 1024,
+           256, 256, True)
+    yield ("spanning", np.arange(151, dtype=np.float32)[None].repeat(8, 0),
+           np.r_[np.full(1, 200), np.ones(150)].astype(np.int32), 512, 256,
+           128, True)
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 4, 700).astype(np.int32)
+    counts[rng.random(700) < 0.4] = 0
+    yield ("zeros anywhere", rng.standard_normal((8, 700)).astype(
+        np.float32), counts, None, 256, 128, False)
+    rng = np.random.default_rng(5)
+    counts = rng.integers(1, 5, 2000).astype(np.int32)
+    yield ("multi-slot steps, int32 rows", rng.integers(
+        -2 ** 31, 2 ** 31 - 1, (16, 2000)).astype(np.int32), counts, None,
+        640, 512, True)
+    yield ("odd sizes", rng.standard_normal((3, 1001)).astype(np.float32),
+           rng.integers(1, 90, 1001).astype(np.int32), 30001, 384, 200, True)
+
+
+@pytest.mark.cuda
+def test_expansion_kernels_match_plain(cuda_device):
+    for name, attrs, counts, out_len, window, step, prefix in \
+            expansion_cases():
+        attrs = torch.tensor(attrs, device=cuda_device)
+        counts = torch.tensor(counts, device=cuda_device)
+        want = stream_gather.expand_attrs_windowed_plain(
+            attrs, counts, out_len, window, step)
+        total = int(want[2])
+        live = min(total, want[0].shape[1])
+        assert bool(want[3]), name
+        runs = [("expand_window_kernel",
+                 lambda: stream_gather.expand_attrs_windowed(
+                     attrs, counts, out_len, window, step)),
+                ("expand_window_async_kernel",
+                 lambda: stream_gather.expand_attrs_windowed(
+                     attrs, counts, out_len, window, step, dma=True))]
+        if prefix:
+            runs.append(("expand_prefix_kernel",
+                         lambda: stream_gather.expand_attrs(attrs, counts,
+                                                            out_len)))
+        for kernel, run in runs:
+            before = stream_gather.LAUNCHES[kernel]
+            plain_before = stream_gather.PLAIN_CALLS
+            got = run()
+            torch.cuda.synchronize()
+            assert stream_gather.LAUNCHES[kernel] == before + 1
+            assert stream_gather.PLAIN_CALLS == plain_before
+            assert int(got[2]) == total, (name, kernel)
+            assert got[0].shape == want[0].shape and got[0].dtype == \
+                attrs.dtype
+            assert torch.equal(got[0][:, :live], want[0][:, :live]), \
+                (name, kernel)
+            assert torch.equal(got[1][:live], want[1][:live]), (name, kernel)
+            if len(got) == 4:
+                assert bool(got[3])
+
+
+@pytest.mark.cuda
+def test_expansion_window_overrun_is_flagged(cuda_device):
+    counts = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    counts[0], counts[600] = 1, 300
+    attrs = torch.arange(8 * 1024, dtype=torch.float32,
+                         device=cuda_device).reshape(8, 1024)
+    for dma in (False, True):
+        out = stream_gather.expand_attrs_windowed(
+            attrs, counts, 512, window_items=256, slots_per_step=128,
+            dma=dma)
+        torch.cuda.synchronize()
+        assert not bool(out[3]) and int(out[2]) == 301
+    # all-zero counts launch nothing and return empty buffers
+    before = dict(stream_gather.LAUNCHES)
+    out = stream_gather.expand_attrs_windowed(attrs, counts * 0)
+    assert out[0].shape == (8, 0) and bool(out[3])
+    # and so does an expansion of no items
+    for dma in (False, True):
+        out = stream_gather.expand_attrs_windowed(attrs[:, :0], counts[:0],
+                                                  dma=dma)
+        assert out[0].shape == (8, 0) and int(out[2]) == 0 and bool(out[3])
+    out = stream_gather.expand_attrs(attrs[:, :0], counts[:0])
+    assert out[0].shape == (8, 0) and int(out[2]) == 0
+    assert stream_gather.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_gather_blocks_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(1)
+    for dtype, s in ((np.float32, 700), (np.int32, 129)):
+        attrs = torch.tensor((rng.random((8, s)) * 1000).astype(dtype),
+                             device=cuda_device)
+        src_lo = torch.tensor(
+            np.r_[np.sort(rng.integers(0, s - 1, 4)), s - 40, s + 500, -3]
+            .astype(np.int32), device=cuda_device)
+        before = stream_gather.LAUNCHES["gather_blocks_kernel"]
+        got = stream_gather.gather_blocks(attrs, src_lo)
+        torch.cuda.synchronize()
+        assert stream_gather.LAUNCHES["gather_blocks_kernel"] == before + 1
+        assert torch.equal(got, stream_gather.gather_blocks_plain(attrs,
+                                                                  src_lo))
+
+
+@pytest.mark.cuda
+def test_stream_routes_give_identical_tables(cuda_device):
+    """One view's table with the streaming kernels on (every route) and
+    off, and the render's default route."""
+    img_h, img_w = 120, 200
+    mean, inv, color, op, z, ndc = screen_scene(5000, 7, img_h, img_w,
+                                                (0.5, 20.0), cuda_device)
+    valid = torch.ones(5000, dtype=torch.bool, device=cuda_device)
+    valid[::7] = False
+    args = (ndc, z, inv, op, valid, img_h, img_w, 8, 16)
+    off = binning.build_tile_table(*args, stream=False)
+    assert off.num_entries > 10000
+    for route in (None, True, "async", "prefix"):
+        stream_gather.reset_counts()
+        on = binning.build_tile_table(*args, stream=route)
+        launched = {k for k, v in stream_gather.LAUNCHES.items() if v}
+        assert launched == {
+            None: {"expand_window_kernel"}, True: {"expand_window_kernel"},
+            "async": {"expand_window_async_kernel"},
+            "prefix": {"expand_prefix_kernel", "expand_window_kernel"},
+        }[route]
+        assert sum(stream_gather.LAUNCHES.values()) == 2
+        assert stream_gather.PLAIN_CALLS == 0
+        for field in off._fields:
+            a, b = getattr(off, field), getattr(on, field)
+            assert torch.equal(a, b) if torch.is_tensor(a) else a == b, \
+                (route, field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5000, 0])
+def test_view_without_rows_gives_empty_table_on_every_route(cuda_device, n):
+    """Points survive culling but none emits a tile row: the default route
+    on the card, and every other, returns the empty table."""
+    img_h, img_w = 120, 200
+    mean, inv, color, op, z, ndc = screen_scene(5000, 7, img_h, img_w,
+                                                (0.5, 20.0), cuda_device)
+    args = (ndc[:, :n], z[:n], inv[:, :n], op[:n],
+            torch.zeros(n, dtype=torch.bool, device=cuda_device),
+            img_h, img_w, 8, 16)
+    off = binning.build_tile_table(*args, stream=False)
+    assert off.num_entries == 0 and off.num_rows == 0
+    for route in (None, True, "async", "prefix"):
+        stream_gather.reset_counts()
+        on = binning.build_tile_table(*args, stream=route)
+        assert stream_gather.PLAIN_CALLS == 0
+        assert not any(stream_gather.LAUNCHES.values())
+        for field in off._fields:
+            a, b = getattr(off, field), getattr(on, field)
+            assert torch.equal(a, b) if torch.is_tensor(a) else a == b, \
+                (route, field)

@@ -88,3 +88,42 @@ def test_training_entry_points_default_to_cuda():
                lambda: raster.zero_stats_sink(8)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn()
+
+
+def test_stream_gather_imports_no_jax():
+    path = ROOT / "litegs_torch" / "ops" / "stream_gather.py"
+    roots = set(_imported_roots(path))
+    assert "torch" in roots and not roots & set(FORBIDDEN)
+
+
+def test_streaming_binning_is_the_default_on_cuda_tensors():
+    from litegs_torch import config
+    from litegs_torch.ops import binning
+    assert config.BINNING_STREAM is True
+    assert binning.stream_route(None, on_cuda=True) == "window"
+    assert binning.stream_route(None, on_cuda=False) is None
+    assert binning.stream_route(False, on_cuda=True) is None
+
+
+def test_stream_gather_takes_the_plain_version_only_on_cpu_tensors():
+    """A tensor that does not lie on the CPU never reaches a plain version,
+    and without a compiler the kernel route raises instead of falling
+    back."""
+    from litegs_torch.ops import _kernels, stream_gather
+    attrs = torch.zeros((2, 8), device="meta")
+    counts = torch.ones(8, dtype=torch.int32, device="meta")
+    before = stream_gather.PLAIN_CALLS
+    for call in (lambda: stream_gather.expand_attrs(attrs, counts, 8),
+                 lambda: stream_gather.expand_attrs_windowed(attrs, counts,
+                                                             8),
+                 lambda: stream_gather.gather_blocks(attrs, counts)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert stream_gather.PLAIN_CALLS == before
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernels build")
+    assert _kernels.CSRC.joinpath("stream_gather.cu").exists()
+    launches = dict(stream_gather.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        stream_gather._launch("expand_prefix_kernel", "litegs_expand_prefix")
+    assert stream_gather.LAUNCHES == launches
