@@ -102,6 +102,11 @@ OPS_PER_PAIR = 15
 # (8), d_inv_cov (9), the T update and its test (3) -- about 40 at C = 3 --
 # plus one add per reduced column (K) for the sum over the tile's pixels
 OPS_PER_CONTRIB_BWD = 40
+# FP32 operations of the per-warp cull's box for one entry of a tile
+# (raster_common.cuh::warp_mask: shrink, determinant, level, two radii;
+# each logarithm, division and square root counted as one, the block
+# compares left out)
+OPS_PER_CULL = 20
 
 FWD_RECORD = {"name": "raster_forward", "route": "cuda",
               "source": "litegs_torch/csrc/raster_fwd.cu",
@@ -179,9 +184,13 @@ class Marks:
                 in zip(self.events, self.events[1:])]
 
 
-def screen_gaussians(rng, n, img_h, img_w, scale_px):
+def screen_gaussians(rng, n, img_h, img_w, scale_px, graze=False):
     """Random gaussians directly in screen space (numpy): mean_pix, inv_cov,
-    color, opacity, view_z, ndc."""
+    color, opacity, view_z, ndc.  ``graze``: each centre is moved so that
+    its alpha >= 1/256 region ends within 0.05 pixel of a column (and for
+    half of them a row) of pixel centres on an 8-pixel boundary, the edges
+    of the raster kernels' warp blocks, where their per-warp cull
+    decides."""
     mx = rng.uniform(-8, img_w + 8, n)
     my = rng.uniform(-8, img_h + 8, n)
     theta = rng.uniform(0, 2 * np.pi, n)
@@ -195,6 +204,16 @@ def screen_gaussians(rng, n, img_h, img_w, scale_px):
     inv = np.stack([c / det, -b / det, a / det])
     color = rng.random((3, n))
     opacity = rng.uniform(0.02, 0.99, n)
+    if graze:
+        # the region's extent along x and y: sqrt(t a), sqrt(t c) for the
+        # covariance [[a, b], [b, c]], t = 2 ln(256 o)
+        t = 2 * np.log(256 * opacity)
+        side = rng.choice([-1.0, 1.0], n)
+        edge = 8 * rng.integers(0, img_w // 8 + 1, n) - rng.integers(0, 2, n)
+        mx = edge + side * (np.sqrt(t * a) + rng.uniform(-0.05, 0.05, n))
+        edge = 8 * rng.integers(0, img_h // 8 + 1, n) - rng.integers(0, 2, n)
+        my = np.where(rng.random(n) < 0.5, my, edge + side * (
+            np.sqrt(t * c) + rng.uniform(-0.05, 0.05, n)))
     view_z = rng.uniform(0.5, 10.0, n)
     ndc = np.stack([(mx + 0.5) / img_w * 2 - 1, (my + 0.5) / img_h * 2 - 1,
                     np.full(n, 0.5), np.ones(n)])
@@ -243,17 +262,20 @@ def phase_kernels(dev, img_h: int = 96, img_w: int = 128):
     worst, worst_bwd = 0.0, 0.0
     cases = (("shallow", 60, (1.0, 8.0), False),
              ("deep", 400, (6.0, 16.0), True),
-             ("sparse", 4, (0.5, 2.0), True))
+             ("sparse", 4, (0.5, 2.0), True),
+             ("grazing", 500, (0.5, 6.0), True))
     for k, (tile_h, tile_w) in enumerate(TILE_SIZES):
         tiles_x = -(-img_w // tile_w)
         for j, (name, n, spx, depth) in enumerate(cases):
             if name == "deep":
-                # more than one batch of entries in the deepest tile
-                n = n * tile_h * tile_w // 128
+                # more than one batch of entries of either kernel (256 and
+                # 128 entries) in the deepest tile
+                n = n * max(tile_h * tile_w, 384) // 128
             rng = np.random.default_rng(100 * k + j)
             mean, inv, color, op, z, ndc = [
                 torch.from_numpy(x).to(dev) for x in
-                screen_gaussians(rng, n, img_h, img_w, spx)]
+                screen_gaussians(rng, n, img_h, img_w, spx,
+                                 graze=name == "grazing")]
             if depth:
                 color = torch.cat([color, z[None]])
             table = binning.build_tile_table(
@@ -287,7 +309,7 @@ def phase_kernels(dev, img_h: int = 96, img_w: int = 128):
                   f"max|diff| fwd={d:.3e} bwd={d_bwd:.3e}")
             if not d <= TOL:
                 fail(f"raster kernel {tile_h}x{tile_w} {name}: {d} > {TOL}")
-            if name == "deep" and not (int(cnt.max()) > tile_h * tile_w and
+            if name == "deep" and not (int(cnt.max()) > 256 and
                                        bool((trans <= 1 / 8192).any())):
                 fail("deep case covers neither several batches nor the "
                      "early exit")
@@ -688,6 +710,55 @@ def make_scene(dev, n_points: int, sh_degree: int):
     return model
 
 
+def pair_counts(kargs) -> dict:
+    """The work of one forward launch on the raster_forward arguments
+    kargs, from its count outputs: ``walked``, the (entry, pixel) pairs up
+    to and including each pixel's stop (or its tile's count), whatever the
+    kernels skip -- the work of a kernel without the cull, which walks them
+    all;
+    ``evaluated``, the pairs of those that the per-warp cull did not skip;
+    ``contributing``, the pairs with alpha >= 1/256 that the blend takes;
+    ``entries``, each tile's entries up to its last pixel's stop, the ones
+    any implementation must at least look at once."""
+    import torch
+    from litegs_torch.ops import raster_cuda
+    tile_count, tile_h, tile_w = kargs[6], kargs[8], kargs[9]
+    counts = torch.zeros((3, tile_count.numel(), tile_h * tile_w),
+                         dtype=torch.int32, device=tile_count.device)
+    raster_cuda.raster_forward(*kargs, walked=counts[0],
+                               evaluated=counts[1], contributing=counts[2],
+                               table_checked=True)
+    out = dict(zip(("walked", "evaluated", "contributing"),
+                   counts.sum((1, 2), dtype=torch.int64).tolist()))
+    out["entries"] = int(counts[0].max(1).values.sum(dtype=torch.int64))
+    return out
+
+
+def raster_bounds(nbytes: int, pairs: dict, ops_per_contrib: int):
+    """(bound ms, bound_by, walked bound ms) of a raster kernel that moves
+    nbytes: the bound of the work the function needs -- ops_per_contrib
+    operations for each contributing pair and the cull's for each entry up
+    to its tile's last stop -- and, for comparison with kernels without
+    the cull, the bound of every walked pair at OPS_PER_PAIR (plus the
+    contributing pairs' further operations)."""
+    needed, by = bytes_bound(nbytes, ops_per_contrib * pairs["contributing"]
+                             + OPS_PER_CULL * pairs["entries"])
+    walked, _ = bytes_bound(nbytes, OPS_PER_PAIR * pairs["walked"] + (
+        ops_per_contrib - OPS_PER_PAIR) * pairs["contributing"])
+    return needed, by, walked
+
+
+def pair_line(pairs: dict, kernel_ms: float, bound_ms: float,
+              bound_by: str, walked_ms: float) -> str:
+    return (f"pairs_walked={pairs['walked']} "
+            f"pairs_evaluated={pairs['evaluated']} "
+            f"contributing_pairs={pairs['contributing']} "
+            f"entries_to_stop={pairs['entries']} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) bound_share={bound_ms / kernel_ms:.4f} "
+            f"bound_walked_ms={walked_ms:.4f} "
+            f"bound_walked_share={walked_ms / kernel_ms:.4f}")
+
+
 def sample_tiles(cnt, seed: int):
     """A count vector that keeps ~SAMPLE_TILES random non-empty tiles and
     the deepest one, and zeroes the rest."""
@@ -800,18 +871,13 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
         kernel_ms = time_ms(lambda: raster_cuda.raster_forward(
             *kargs, table_checked=True))
         checked_ms = time_ms(lambda: raster_cuda.raster_forward(*kargs))
-        walked = torch.zeros((table.tile_count.numel(), npix),
-                             dtype=torch.int32, device=dev)
-        raster_cuda.raster_forward(*kargs, walked=walked)
-        pairs = int(walked.sum(dtype=torch.int64))
+        pairs = pair_counts(kargs)
         m, nchan = aux.opacity.numel(), aux.color_chan.shape[0]
         tiles = table.tile_count.numel()
         nbytes = 4 * (m * (6 + nchan) + table.num_entries + 2 * tiles
                       + tiles * (nchan + 1) * npix)
-        ops = OPS_PER_PAIR * pairs
-        bound_ms = 1e3 * max(ops / PEAK_FP32, nbytes / PEAK_BYTES)
-        bound_by = "operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES \
-            else "bytes"
+        bound_ms, bound_by, walked_ms = raster_bounds(nbytes, pairs,
+                                                      OPS_PER_PAIR)
 
         # the kernel against its plain version on a sample of this view's
         # tiles, the tile with the most entries among them
@@ -826,9 +892,9 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
               f"rows={int(view.sizes[1])} entries={int(view.sizes[2])} "
               f"max_tile={int(cnt.max())} render_ms={render_ms:.3f} "
               f"kernel_ms={kernel_ms:.3f} kernel_with_check_ms="
-              f"{checked_ms:.3f} pairs_walked={pairs} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}) "
-              f"sample_tiles={n_pick} sample_entries={int(sub.sum())} "
+              f"{checked_ms:.3f} "
+              + pair_line(pairs, kernel_ms, bound_ms, bound_by, walked_ms)
+              + f" sample_tiles={n_pick} sample_entries={int(sub.sum())} "
               f"max|diff|={d:.3e}")
         if not d <= TOL:
             fail(f"raster kernel vs plain on view {i}'s sample: {d} > {TOL}")
@@ -1106,25 +1172,19 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     bwd_stats_ms = time_ms(lambda: raster_cuda.raster_backward(
         *kargs, col, trans, *cot, with_stats=True, table_checked=True))
     npix = tile_h * tile_w
-    walked = torch.zeros((table.tile_count.numel(), npix),
-                         dtype=torch.int32, device=dev)
-    raster_cuda.raster_forward(*kargs, walked=walked, table_checked=True)
-    pairs = int(walked.sum(dtype=torch.int64))
+    pairs = pair_counts(kargs)
     g = raster_cuda.raster_backward(*kargs, col, trans, *cot,
                                     with_stats=True, table_checked=True)
-    contrib = int(g.frag_count.double().sum())
+    frag_count = int(g.frag_count.double().sum())
     m, nchan = aux.opacity.numel(), aux.color_chan.shape[0]
     ncol = nchan + 6
     tiles = table.tile_count.numel()
-    ops = OPS_PER_PAIR * pairs + (OPS_PER_CONTRIB_BWD + ncol) * contrib
-    # inputs once, outputs once, and one atomic read-modify-write of a
-    # word per entry and column
-    nbytes = (4 * (m * (6 + nchan) + table.num_entries + 2 * tiles
-                   + 2 * tiles * (nchan + 1) * npix + ncol * m)
-              + 8 * ncol * table.num_entries)
-    bound_ms = 1e3 * max(ops / PEAK_FP32, nbytes / PEAK_BYTES)
-    bound_by = "operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES \
-        else "bytes"
+    # inputs once (the forward's outputs and their cotangents among
+    # them), outputs once
+    nbytes = 4 * (m * (6 + nchan) + table.num_entries + 2 * tiles
+                  + 2 * tiles * (nchan + 1) * npix + ncol * m)
+    bound_ms, bound_by, walked_ms = raster_bounds(
+        nbytes, pairs, OPS_PER_PAIR + OPS_PER_CONTRIB_BWD + ncol)
     plain_ms = time_ms(lambda: raster_cuda.raster_backward_plain(
         *kargs, col, trans, *cot), repeats=1)
     sub, n_pick = sample_tiles(table.tile_count, 20)
@@ -1136,10 +1196,10 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
                                           with_stats=True),
         "on view 0's sampled tiles", flip_rate=STOP_FLIP_RATE)
     print(f"backward view 0: entries={table.num_entries} "
-          f"max_tile={int(table.tile_count.max())} pairs_walked={pairs} "
-          f"contributing_pairs={contrib} kernel_ms={bwd_ms:.3f} "
-          f"kernel_stats_ms={bwd_stats_ms:.3f} bound_ms={bound_ms:.4f} "
-          f"({bound_by}) plain_ms={plain_ms:.3f} sample_tiles={n_pick} "
+          f"max_tile={int(table.tile_count.max())} kernel_ms={bwd_ms:.3f} "
+          f"kernel_stats_ms={bwd_stats_ms:.3f} frag_count_sum={frag_count} "
+          + pair_line(pairs, bwd_ms, bound_ms, bound_by, walked_ms)
+          + f" plain_ms={plain_ms:.3f} sample_tiles={n_pick} "
           f"sample_entries={int(sub.sum())} max|diff|={worst:.3e} "
           f"frag_count_flips={flips:.0f}")
     record = dict(BWD_RECORD, launches=bwd_a + bwd_b, ms=bwd_ms,
@@ -1201,7 +1261,6 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _kernels.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-
     worst_fwd, worst_bwd = phase_kernels(dev)
     worst_sg = phase_stream_kernels(dev)
     torch.cuda.synchronize()

@@ -2,11 +2,11 @@
 
 Every ``litegs_torch/csrc/*.cu`` file is compiled by ``nvcc`` into its own
 shared library with a plain C interface, at first use, into
-``build/litegs_torch/`` at the repository root.  A library's file name
-carries a hash of its source, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing outside the repository's
-sources goes into a build.  The sources are compiled in parallel, one
-``nvcc`` process each.
+``build/litegs_torch/`` at the repository root. A library's file name
+carries a hash of its source and of the shared headers (``csrc/*.cuh``),
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing outside the repository's sources goes into a build. The sources
+are compiled in parallel, one ``nvcc`` process each.
 """
 from __future__ import annotations
 
@@ -38,7 +38,9 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers are part of every source's hash
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 

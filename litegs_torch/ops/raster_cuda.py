@@ -1,28 +1,33 @@
 """Raster kernels on the card: the wrappers of ``csrc/raster_fwd.cu`` and
-``csrc/raster_bwd.cu``.
+``csrc/raster_bwd.cu`` (their shared parts in ``csrc/raster_common.cuh``).
 
 :func:`raster_forward` replaces ``litegs_tpu/ops/raster_pallas.py::
 _fwd_kernel`` (launched by ``raster_forward_pallas``).  The kernel runs one
-thread block per tile and one thread per pixel, and walks the tile's
-depth-sorted entries of the exact binning table front to back (see the
-source for the blend).  What bounds it on the H100: the FP32 and exp work
-per (entry, pixel) pair -- about fifteen operations and one exponential for
-each pair walked -- while the bytes it moves are small (each entry's ten
-attribute words, each pixel's output once).  Each entry's attributes are
-loaded once per tile into shared memory and shared by all the tile's
-pixels, and a tile stops as soon as every one of its pixels has saturated
-(T <= 1/8192).
+thread block per tile, one pixel per thread and an 8x4 pixel block per
+warp, and walks the tile's depth-sorted entries of the exact binning
+table front to back (see the source for the blend).  What bounds it on
+the H100: the FP32 and exp work per (entry, pixel) pair -- about fifteen
+operations and one exponential for each pair walked -- while the bytes it
+moves are small (each entry's ten attribute words, each pixel's output
+once).  Each batch of entries is staged once per tile in shared memory as
+16-byte records with a per-warp cull mask: a warp skips the entries whose
+alpha >= 1/256 region cannot reach its pixels (:func:`warp_block_visible`
+is the plain version of that test), and stops as soon as its pixels have
+saturated (T <= 1/8192).
 
 :func:`raster_backward` replaces ``raster_pallas.py::_bwd_kernel``
-(launched by ``raster_backward_pallas``), reduced to points.  Same grid and
-batches; each pixel re-walks its entries in forward order with its
-cotangent and forms each pair's partial gradients directly.  What bounds
-it: per (entry, pixel) pair the FP32 and exp work (about forty operations
-for a pair that contributes), and per entry the reduction of its 9-13
-partial sums across the tile's pixels (warp shuffles, then shared memory
-across warps) and their atomic adds into the per-point outputs.  The bytes
-are small.  A warp that no entry touched skips that entry's reduction, and
-the tile stops where the forward stopped.
+(launched by ``raster_backward_pallas``), reduced to points. Same grid,
+records and cull, two pixels of one column per thread and an 8x8 pixel
+block per warp (the pixels share the entry's loads and dx terms); each
+pixel re-walks its entries in forward order with its cotangent and forms
+each pair's partial gradients directly. What bounds it: the reduction of
+each entry's 9-13 partial sums across the tile's pixels and their atomic
+adds into the per-point outputs, then the per-pair FP32 work. The kernel
+reduces each touched entry across a warp by one reduce-scatter butterfly
+(16 shuffles), across warps by shared-memory atomics, and adds each entry
+into a point-major ``[M, KP]`` array with 16-byte vector atomics; the
+wrapper transposes that array into the ``[K, M]`` rows of
+:class:`PointGrads`.
 
 The tables are validated once per table by :func:`check_table` (a host
 wait), not per launch: the autograd Function of ``ops/raster`` checks each
@@ -40,7 +45,7 @@ import functools
 
 import torch
 
-from . import _kernels
+from . import _kernels, raster_plain
 from .raster_plain import (PointGrads, raster_backward_reference,
                            rasterize_reference)
 
@@ -54,8 +59,10 @@ LAUNCHES_BWD = 0
 def _lib() -> ctypes.CDLL:
     lib = _kernels.library("raster_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.litegs_raster_forward.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.litegs_raster_forward.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.litegs_raster_forward.restype = i
+    lib.litegs_raster_forward_takes.argtypes = [i, i]
+    lib.litegs_raster_forward_takes.restype = i
     lib.litegs_error_string.argtypes = [i]
     lib.litegs_error_string.restype = ctypes.c_char_p
     return lib
@@ -67,6 +74,10 @@ def _lib_bwd() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.litegs_raster_backward.argtypes = [p] * 12 + [i] * 7 + [p]
     lib.litegs_raster_backward.restype = i
+    for fn in (lib.litegs_raster_backward_row,
+               lib.litegs_raster_backward_takes):
+        fn.argtypes = [i, i]
+        fn.restype = i
     lib.litegs_error_string.argtypes = [i]
     lib.litegs_error_string.restype = ctypes.c_char_p
     return lib
@@ -101,6 +112,44 @@ def check_table(sorted_point, tile_start, tile_count, m: int):
         raise ValueError(f"point ids outside [0, {m})")
 
 
+# the per-warp cull of both kernels (csrc/raster_common.cuh): the form's
+# a and c shrunk by CULL_SHRINK, the level raised by CULL_SLACK (1 + |t|),
+# the box widened by CULL_MARGIN_PX
+CULL_SHRINK = 1.0 - 1.0 / 256.0
+CULL_SLACK = 1.0 / 256.0
+CULL_MARGIN_PX = 1.0 / 16.0
+
+
+def warp_block_visible(mean_pix, inv_cov, opacity, x0, y0, x1, y1):
+    """The plain version of the kernels' per-warp cull.
+
+    For entries with float32 attributes mean_pix [2, N], inv_cov [3, N],
+    opacity [N] and a block of pixel centres [x0, x1] x [y0, y1] (integer
+    coordinates, inclusive), returns bool [N]: False where the kernels
+    skip the entry for a warp owning that block.  The test is meant to be
+    conservative -- False only where every pixel of the block has
+    alpha_raw < 1/256 (or NaN) -- with the rounding margins of
+    ``csrc/raster_common.cuh``: the bounding box of the alpha >= 1/256
+    region of a form with a and c shrunk by 1/256, at a level raised by
+    (1 + |t|) / 256, widened by 1/16 pixel.  Kept everywhere: a form that
+    is not positive definite after the shrink, or a box that is not
+    finite; culled everywhere: opacity < 1/256 on a positive-definite form.
+    """
+    mx, my = mean_pix[0], mean_pix[1]
+    a, b, c = inv_cov[0], inv_cov[1], inv_cov[2]
+    a_s, c_s = a * CULL_SHRINK, c * CULL_SHRINK
+    det = a_s * c_s - b * b
+    definite = (a > 0) & (c > 0) & (det > 0)
+    faint = opacity < raster_plain.ALPHA_MIN
+    t = 2.0 * torch.log(256.0 * opacity)
+    tau = t + CULL_SLACK * (1.0 + t.abs())
+    rx = torch.sqrt(tau * c_s / det) + CULL_MARGIN_PX
+    ry = torch.sqrt(tau * a_s / det) + CULL_MARGIN_PX
+    finite = (rx < 1e30) & (ry < 1e30)
+    hit = (mx + rx >= x0) & (mx - rx <= x1) & (my + ry >= y0) & (my - ry <= y1)
+    return ~definite | (~faint & (~finite | hit))
+
+
 def _check_launch(mean_pix, inv_cov, color, opacity, sorted_point,
                   tile_start, tile_count, tiles_x: int, tile_h: int,
                   tile_w: int):
@@ -133,9 +182,17 @@ def _check_launch(mean_pix, inv_cov, color, opacity, sorted_point,
     return dev, nchan, m, tiles_total, npix
 
 
+def _check_tile(takes, tile_h: int, tile_w: int):
+    if not takes(tile_h, tile_w):
+        raise ValueError(f"tile {tile_h}x{tile_w}: the kernels take tiles "
+                         "of at most 1024 pixels made of whole warp blocks "
+                         "(8 or 16 columns wide)")
+
+
 def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
                    tile_start, tile_count, tiles_x: int, tile_h: int,
-                   tile_w: int, walked=None, table_checked: bool = False):
+                   tile_w: int, walked=None, evaluated=None,
+                   contributing=None, table_checked: bool = False):
     """Blend each tile's entries; tile layout out.
 
     Args:
@@ -143,16 +200,20 @@ def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
       opacity [M]: float32 per-point attributes.
       sorted_point [E], tile_start [T], tile_count [T]: int32 binning
         table; tile t blends entries tile_start[t] .. + tile_count[t] - 1.
-      walked: optional int32 [T, P] tensor that receives, per pixel, the
-        number of entries the kernel evaluated (CUDA only; for measuring
-        the work a frame needs).
+      walked, evaluated, contributing: optional int32 [T, P] tensors (CUDA
+        only; for measuring the work a frame needs).  walked receives, per
+        pixel, the entries up to and including its stop (or the tile's
+        count), whether the per-warp cull skipped them or not; evaluated
+        the pairs among them that the cull did not skip; contributing the
+        pairs among them with alpha >= 1/256, which the blend takes.
       table_checked: the caller has run :func:`check_table` on this table.
     Returns (tiles_color [T, C, P], tiles_trans [T, P]); a tile with no
     entries comes out with colour 0 and transmittance 1.
     """
     if mean_pix.device.type == "cpu":
-        if walked is not None:
-            raise ValueError("walked is only produced by the CUDA kernel")
+        if (walked, evaluated, contributing) != (None, None, None):
+            raise ValueError("walked, evaluated and contributing are only "
+                             "produced by the CUDA kernel")
         return raster_forward_plain(mean_pix, inv_cov, color, opacity,
                                     sorted_point, tile_start, tile_count,
                                     tiles_x, tile_h, tile_w)
@@ -160,20 +221,24 @@ def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
     dev, nchan, m, tiles_total, npix = _check_launch(
         mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
         tile_count, tiles_x, tile_h, tile_w)
+    lib = _lib()
+    _check_tile(lib.litegs_raster_forward_takes, tile_h, tile_w)
     if not table_checked:
         check_table(sorted_point, tile_start, tile_count, m)
-    if walked is not None:
-        _check("walked", walked, torch.int32, (tiles_total, npix), dev)
+    counts = {"walked": walked, "evaluated": evaluated,
+              "contributing": contributing}
+    for name, t in counts.items():
+        if t is not None:
+            _check(name, t, torch.int32, (tiles_total, npix), dev)
     out_color = torch.empty((tiles_total, nchan, npix), dtype=torch.float32,
                             device=dev)
     out_trans = torch.empty((tiles_total, npix), dtype=torch.float32,
                             device=dev)
-    lib = _lib()
     rc = lib.litegs_raster_forward(
         mean_pix.data_ptr(), inv_cov.data_ptr(), color.data_ptr(),
         opacity.data_ptr(), sorted_point.data_ptr(), tile_start.data_ptr(),
         tile_count.data_ptr(), out_color.data_ptr(), out_trans.data_ptr(),
-        None if walked is None else walked.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in counts.values()),
         m, nchan, tiles_total, tiles_x, tile_h, tile_w,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -207,9 +272,8 @@ def raster_backward(mean_pix, inv_cov, color, opacity, sorted_point,
     dev, nchan, m, tiles_total, npix = _check_launch(
         mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
         tile_count, tiles_x, tile_h, tile_w)
-    if npix % 32:
-        raise ValueError(f"tile {tile_h}x{tile_w}: the backward kernel "
-                         "needs a multiple of 32 pixels")
+    lib = _lib_bwd()
+    _check_tile(lib.litegs_raster_backward_takes, tile_h, tile_w)
     if not table_checked:
         check_table(sorted_point, tile_start, tile_count, m)
     for name, t in (("tiles_color", tiles_color),
@@ -219,19 +283,23 @@ def raster_backward(mean_pix, inv_cov, color, opacity, sorted_point,
                     ("d_tiles_trans", d_tiles_trans)):
         _check(name, t, torch.float32, (tiles_total, npix), dev)
     rows = nchan + 6 + (3 if with_stats else 0)
-    grads = torch.zeros((rows, m), dtype=torch.float32, device=dev)
-    lib = _lib_bwd()
+    # the kernel adds each entry's columns into one point-major row
+    point_major = torch.zeros(
+        (m, lib.litegs_raster_backward_row(nchan, int(with_stats))),
+        dtype=torch.float32, device=dev)
     rc = lib.litegs_raster_backward(
         mean_pix.data_ptr(), inv_cov.data_ptr(), color.data_ptr(),
         opacity.data_ptr(), sorted_point.data_ptr(), tile_start.data_ptr(),
         tile_count.data_ptr(), tiles_color.data_ptr(), tiles_trans.data_ptr(),
-        d_tiles_color.data_ptr(), d_tiles_trans.data_ptr(), grads.data_ptr(),
+        d_tiles_color.data_ptr(), d_tiles_trans.data_ptr(),
+        point_major.data_ptr(),
         m, nchan, int(with_stats), tiles_total, tiles_x, tile_h, tile_w,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("raster backward kernel launch failed: "
                            + lib.litegs_error_string(rc).decode())
     LAUNCHES_BWD += 1
+    grads = point_major[:, :rows].t().contiguous()
     c = nchan
     out = PointGrads(d_mean=grads[c:c + 2], d_inv_cov=grads[c + 2:c + 5],
                      d_color=grads[:c], d_opacity=grads[c + 5])

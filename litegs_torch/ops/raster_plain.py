@@ -74,6 +74,21 @@ def tile_pixel_coords(tiles_x: int, tile_h: int, tile_w: int, tile_ids):
     return ((tx * tile_w + in_x).float(), (ty * tile_h + in_y).float())
 
 
+def pair_alpha(mean_pix, inv_cov, opacity, sp, pix_x, pix_y):
+    """The (entry, pixel) pairs of entries of points ``sp`` [E] at pixels
+    (pix_x, pix_y) [E, P]: returns (dx, dy [E, P], a, b, c [E, 1],
+    alpha_raw [E, P]), dx = mean_x - px.  The exponent's operations come in
+    the order the kernels repeat them (``csrc/raster_common.cuh``
+    ``pair_alpha``), each rounded on its own."""
+    dx = mean_pix[0][sp][:, None] - pix_x
+    dy = mean_pix[1][sp][:, None] - pix_y
+    a = inv_cov[0][sp][:, None]
+    b = inv_cov[1][sp][:, None]
+    c = inv_cov[2][sp][:, None]
+    power = -0.5 * (a * dx * dx + 2.0 * b * dx * dy + c * dy * dy)
+    return dx, dy, a, b, c, opacity[sp][:, None] * torch.exp(power)
+
+
 def _segmented_exclusive_cumsum(x, seg_start_per_entry):
     """Exclusive cumsum of x [E, P] within segments of the entry axis.
 
@@ -112,16 +127,8 @@ def rasterize_reference(mean_pix, inv_cov, color, opacity,
     safe_tile = torch.clamp(sorted_tile.long(), max=tiles_total - 1)
     pix_x, pix_y = tile_pixel_coords(tiles_x, tile_h, tile_w, safe_tile)
 
-    def g(arr):
-        return arr[sp]
-
-    dx = g(mean_pix[0])[:, None] - pix_x            # [E, P]
-    dy = g(mean_pix[1])[:, None] - pix_y
-    a = g(inv_cov[0])[:, None]
-    b = g(inv_cov[1])[:, None]
-    c = g(inv_cov[2])[:, None]
-    power = -0.5 * (a * dx * dx + 2.0 * b * dx * dy + c * dy * dy)
-    alpha_raw = g(opacity)[:, None] * torch.exp(power)
+    alpha_raw = pair_alpha(mean_pix, inv_cov, opacity, sp, pix_x,
+                           pix_y)[-1]
     # straight-through upper clamp (see module docstring)
     alpha_c = alpha_raw + (torch.clamp(alpha_raw, max=ALPHA_MAX)
                            - alpha_raw).detach()
@@ -197,13 +204,8 @@ def raster_backward_reference(mean_pix, inv_cov, color, opacity,
     safe_tile = torch.clamp(sorted_tile.long(), max=tiles_total - 1)
     pix_x, pix_y = tile_pixel_coords(tiles_x, tile_h, tile_w, safe_tile)
 
-    dx = mean_pix[0][sp][:, None] - pix_x            # [E, P]
-    dy = mean_pix[1][sp][:, None] - pix_y
-    a = inv_cov[0][sp][:, None]
-    b = inv_cov[1][sp][:, None]
-    c = inv_cov[2][sp][:, None]
-    power = -0.5 * (a * dx * dx + 2.0 * b * dx * dy + c * dy * dy)
-    alpha_raw = opacity[sp][:, None] * torch.exp(power)
+    dx, dy, a, b, c, alpha_raw = pair_alpha(mean_pix, inv_cov, opacity, sp,
+                                            pix_x, pix_y)
     alpha_ok = (alpha_raw >= ALPHA_MIN) & entry_valid[:, None]
     zero = torch.zeros((), dtype=alpha_raw.dtype, device=alpha_raw.device)
     alpha = torch.where(alpha_ok, torch.clamp(alpha_raw, max=ALPHA_MAX), zero)

@@ -44,9 +44,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def screen_scene(n, seed, img_h, img_w, scale_px, dev):
+def screen_scene(n, seed, img_h, img_w, scale_px, dev,
+                 opacity=(0.02, 0.99), graze=False):
     """Random screen-space gaussians: (mean, inv_cov, color, opacity,
-    view_z, ndc) as float32 tensors on ``dev``."""
+    view_z, ndc) as float32 tensors on ``dev``.  ``graze``: each centre is
+    moved so that its alpha >= 1/256 region ends within 0.05 pixel of a
+    column or row of pixel centres on an 8-pixel boundary, the edges of
+    the kernels' warp blocks."""
     rng = np.random.default_rng(seed)
     mx = rng.uniform(-8, img_w + 8, n)
     my = rng.uniform(-8, img_h + 8, n)
@@ -57,11 +61,21 @@ def screen_scene(n, seed, img_h, img_w, scale_px, dev):
     b = ct * st * (s1 * s1 - s2 * s2)
     c = st * st * s1 * s1 + ct * ct * s2 * s2
     det = a * c - b * b
+    op = rng.uniform(*opacity, n)
+    if graze:
+        # extent of {alpha >= 1/256} along x and y: sqrt(t a), sqrt(t c)
+        # for the covariance [[a, b], [b, c]], t = 2 ln(256 o)
+        t = 2 * np.log(np.maximum(256 * op, 1.0))
+        edge = 8 * rng.integers(0, img_w // 8 + 1, n) + rng.choice([-1, 0], n)
+        side = rng.choice([-1.0, 1.0], n)
+        mx = edge + side * (np.sqrt(t * a) + rng.uniform(-0.05, 0.05, n))
+        edge = 8 * rng.integers(0, img_h // 8 + 1, n) + rng.choice([-1, 0], n)
+        my_g = edge + side * (np.sqrt(t * c) + rng.uniform(-0.05, 0.05, n))
+        my = np.where(rng.random(n) < 0.5, my_g, my)
     ndc = np.stack([(mx + 0.5) / img_w * 2 - 1, (my + 0.5) / img_h * 2 - 1,
                     np.full(n, 0.5), np.ones(n)])
     arrays = (np.stack([mx, my]), np.stack([c / det, -b / det, a / det]),
-              rng.random((3, n)), rng.uniform(0.02, 0.99, n),
-              rng.uniform(0.5, 10.0, n), ndc)
+              rng.random((3, n)), op, rng.uniform(0.5, 10.0, n), ndc)
     return [torch.tensor(x, dtype=torch.float32, device=dev)
             for x in arrays]
 
@@ -238,6 +252,75 @@ def test_train_step_kernels_vs_plain(cuda_device):
             assert (stk.weight_sum - stp.weight_sum).abs().max() <= 2e-3
             assert (stk.frag_count - stp.frag_count).abs().max() <= 0.5
             assert torch.equal(stk.visible_count, stp.visible_count)
+
+
+# scenes of the redesigned kernels' own cases: (name, points, pixel
+# scales, opacities, grazing centres, depth channel)
+REDESIGN_CASES = [
+    # faint wide splats: tiles of more than four batches of entries whose
+    # pixels stay unsaturated through them (both kernels stage 128 or 256
+    # entries per batch)
+    ("many batches", 5000, (15.0, 35.0), (0.004, 0.012), False, False),
+    # the same depth, saturating part-way
+    ("many batches, saturating", 5000, (15.0, 35.0), (0.02, 0.3), False,
+     True),
+    # alpha >= 1/256 regions ending at the warp blocks' edges
+    ("grazing", 600, (0.5, 6.0), (0.003, 0.99), True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("case", REDESIGN_CASES, ids=lambda c: c[0])
+def test_kernels_on_redesign_cases(cuda_device, tile, case):
+    """Forward at 1e-4, backward with and without statistics at the bars
+    of assert_grads_close (frag_count exactly), walked, evaluated and
+    contributing consistent with the table and with frag_count."""
+    name, n, spx, op_range, graze, depth = case
+    tile_h, tile_w = tile
+    img_h, img_w = 64, 96
+    tiles_x = -(-img_w // tile_w)
+    mean, inv, color, op, z, ndc = screen_scene(
+        n, 40 + tile_h + tile_w, img_h, img_w, spx, cuda_device,
+        opacity=op_range, graze=graze)
+    if depth:
+        color = torch.cat([color, z[None]])
+    table = binning.build_tile_table(
+        ndc, z, inv, op, torch.ones(n, dtype=torch.bool, device=cuda_device),
+        img_h, img_w, tile_h, tile_w)
+    if name.startswith("many"):
+        assert int(table.tile_count.max()) > 4 * 256, name
+    args = (mean, inv, color, op, table.sorted_point, table.tile_start,
+            table.tile_count, tiles_x, tile_h, tile_w)
+    npix = tile_h * tile_w
+    walked = torch.zeros((table.tile_count.numel(), npix), dtype=torch.int32,
+                         device=cuda_device)
+    evaluated = torch.zeros_like(walked)
+    contributing = torch.zeros_like(walked)
+    col, trans = raster_cuda.raster_forward(*args, walked=walked,
+                                            evaluated=evaluated,
+                                            contributing=contributing)
+    col_p, trans_p = raster_cuda.raster_forward_plain(*args)
+    assert (col - col_p).abs().max().item() <= TOL
+    assert (trans - trans_p).abs().max().item() <= TOL
+    cnt = table.tile_count[:, None]
+    assert bool((contributing <= evaluated).all()
+                and (evaluated <= walked).all() and (walked <= cnt).all())
+    # a pixel that did not saturate walked its whole tile
+    assert bool((walked[trans > 1 / 8192] == cnt.expand_as(walked)[
+        trans > 1 / 8192]).all())
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    cot = (torch.randn(col.shape, generator=gen, device=cuda_device),
+           torch.randn(trans.shape, generator=gen, device=cuda_device))
+    for with_stats in (False, True):
+        got = raster_cuda.raster_backward(*args, col, trans, *cot,
+                                          with_stats=with_stats)
+        want = raster_cuda.raster_backward_plain(*args, col, trans, *cot,
+                                                 with_stats=with_stats)
+        assert_grads_close(got, want)
+        if with_stats:
+            assert torch.equal(got.frag_count, want.frag_count)
+            assert int(got.frag_count.double().sum()) == int(contributing.sum())
 
 
 def expansion_cases():
