@@ -24,9 +24,12 @@ stops the script with a nonzero exit when it fails:
      the default route, the asynchronous-copy route and the prefix route
      identical in every field to the non-streaming table, a render through
      each route with its launches counted, gather_blocks building the
-     128-aligned copy of the table, each stream_gather kernel's time beside
-     its plain version, one PyTorch call and its bytes bound, and the
-     binning stage timed with the streaming kernels on and off;
+     128-aligned copy of the table, expand_window_kernel held to the plain
+     model of its blocks (window_step_plain) on sampled steps of both
+     expansions, each stream_gather kernel's time alone and per call beside
+     its plain version, one PyTorch call and its bytes bound, the window
+     calls' remaining torch ops timed alone, and the binning stage timed
+     with the streaming kernels on and off;
   4. the training path on the same scene: make_train_step from the
      sh_0-perturbed model toward the unperturbed model's renders -- steady
      steps, then statistics steps, a taming densify step and the Morton
@@ -488,6 +491,31 @@ def kernel_device_ms(fn, kernel: str, repeats: int = REPEATS):
     return sum(us) / repeats / 1e3
 
 
+def check_block_model(got, attrs, counts, window: int, step: int,
+                      what: str, steps: int = 32):
+    """Hold expand_window_kernel's output (out, rank, total, ok) to
+    window_step_plain, the plain model of one of its blocks, on ``steps``
+    steps spread over the expansion: every slot of a step, those past the
+    total included."""
+    import torch
+    from litegs_torch.ops import stream_gather as sg
+    cum = torch.cumsum(counts, 0).cpu()
+    out, rank = got[0], got[1]
+    n_slots = rank.shape[0]
+    n_steps = -(-n_slots // step)
+    for b in sorted(set(np.linspace(0, n_steps - 1, steps).astype(int))):
+        _, ok, owner, want_rank = sg.window_step_plain(cum, int(b), window,
+                                                       step, n_slots)
+        s0 = int(b) * step
+        if not ok:
+            fail(f"{what}: the block model finds step {b} outside its "
+                 "window")
+        owner = owner.to(attrs.device)
+        if not (torch.equal(rank[s0:s0 + step].cpu(), want_rank)
+                and torch.equal(out[:, s0:s0 + step], attrs[:, owner])):
+            fail(f"{what}: step {b} differs from the block model")
+
+
 def bytes_bound(nbytes: int, ops: int):
     ms = 1e3 * max(ops / PEAK_FP32, nbytes / PEAK_BYTES)
     return ms, ("operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES
@@ -637,9 +665,9 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
             attrs, counts, dim=1, output_size=slots))
 
         def prelude():
-            cum, _, total, _ = sg._prefix(attrs, counts, slots)
-            sg._window_plan(cum, total, slots, window, step)
+            sg._window_prelude(attrs, counts, slots)
 
+        # the window kernels' calls run no torch op beside these
         prelude_ms = time_ms(prelude)
         line = []
         for kernel, run in runs.items():
@@ -648,10 +676,13 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
             worst[kernel] = max(worst[kernel],
                                 exact_diff(got[0], want[0], what),
                                 exact_diff(got[1], want[1], what + " rank"))
+            if kernel == "expand_window_kernel":
+                check_block_model(got, attrs, counts, window, step, what)
             call_ms = time_ms(run)
             ms = kernel_device_ms(run, kernel)
-            line.append(f"{kernel} {ms:.4f} ms alone, {call_ms:.4f} ms its "
-                        "call")
+            line.append(f"{kernel} {ms:.4f} ms alone ({bound_ms / ms:.1%} "
+                        f"of the bound), {call_ms:.4f} ms its call "
+                        f"({bound_ms / call_ms:.1%})")
             # the record of the prefix kernel is the first expansion (where
             # its contract holds and the 'prefix' route runs it), of the
             # window kernels the second and larger one
@@ -663,10 +694,11 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
         print(f"{label} expansion {n}: rows={a} items={items} slots={slots}"
               f" window={window}+128 step={step} bytes={nbytes} "
               f"bound_ms={bound_ms:.4f} ({bound_by}); "
-              + ", ".join(line) + f" (a call adds its wrapper's torch ops:"
-              f" the prefix sum and, for the window kernels, the steps' "
-              f"owner search, {prelude_ms:.4f} ms); plain {plain_ms:.4f} ms; "
-              f"torch.repeat_interleave {library_ms:.4f} ms")
+              + ", ".join(line) + f"; a window kernel's call runs beside "
+              f"its launch only the prefix sum, its two outputs and the ok "
+              f"byte, {prelude_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"torch.repeat_interleave {library_ms:.4f} ms "
+              f"({bound_ms / library_ms:.1%} of the bound)")
     nb = src_lo.numel()
     idx = (src_lo.long()[:, None]
            + torch.arange(128, device=dev)).flatten().clamp(

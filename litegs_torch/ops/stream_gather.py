@@ -20,8 +20,12 @@ gather_blocks              gather_blocks_kernel        _monotonic_kernel
 
 All four are bound by bytes on the H100 (each output word written once, the
 payload read once); see the source for what each design does about it.  The
-prefix sum of the counts and the per-step owner search stay torch ops here,
-as they are XLA ops outside the Pallas bodies in the JAX package.
+prefix sum of the counts stays a torch op here, as it is an XLA op outside
+the Pallas bodies in the JAX package.  The per-step owner search and the
+window check, XLA ops there too, run inside the two window kernels: their
+wrapper runs the prefix sum, allocates the two outputs and a one-byte ``ok``
+set to true, and launches (:func:`window_step_plain` is the plain model of
+one block's work).
 
 The kernels move 4-byte words, so ``attrs`` may be float32 or int32 and
 integer columns ride as they are.  ``out_len`` may be any length, or None
@@ -124,8 +128,8 @@ def owner_of_slots(cum, slots):
 
 
 def _prefix(attrs, counts, out_len):
-    """Checks and the prefix sum the expansions share: returns (cum, starts
-    int32, total 0-d int64, out_len int).  ``attrs`` may hold no items."""
+    """Checks and the prefix sum the expansions share: returns (cum int64,
+    total 0-d int64, out_len int).  ``attrs`` may hold no items."""
     _check_attrs(attrs)
     _check_index("counts", counts, attrs.shape[1], attrs.device)
     cum = torch.cumsum(counts, 0)
@@ -137,8 +141,20 @@ def _prefix(attrs, counts, out_len):
             raise ValueError(f"{out_len} slots do not fit int32 offsets")
     if out_len < 0:
         raise ValueError(f"out_len {out_len} is negative")
-    starts = (cum - counts).to(torch.int32)
-    return cum, starts, total, out_len
+    return cum, total, out_len
+
+
+def _starts(cum, counts):
+    """Every item's first slot, the exclusive prefix sum (int32)."""
+    return (cum - counts).to(torch.int32)
+
+
+def _check_window_args(window_items: int, slots_per_step: int):
+    if window_items <= 0 or window_items % BLK:
+        raise ValueError(f"window_items {window_items} is not a positive "
+                         f"multiple of {BLK}")
+    if slots_per_step <= 0:
+        raise ValueError(f"slots_per_step {slots_per_step} is not positive")
 
 
 def step_owners(cum, total, out_len: int, slots_per_step: int):
@@ -156,19 +172,23 @@ def step_owners(cum, total, out_len: int, slots_per_step: int):
 
 def _window_plan(cum, total, out_len: int, window_items: int,
                  slots_per_step: int):
-    """The first owner of every output step and the window check of
-    ``litegs_tpu/ops/stream_gather.py:223-238``: returns (blk_lo int32
-    [steps], window width in items, ok 0-d bool)."""
-    if window_items <= 0 or window_items % BLK:
-        raise ValueError(f"window_items {window_items} is not a positive "
-                         f"multiple of {BLK}")
-    if slots_per_step <= 0:
-        raise ValueError(f"slots_per_step {slots_per_step} is not positive")
-    nblk = window_items // BLK + 1     # +1 covers unaligned window starts
+    """The window check of ``litegs_tpu/ops/stream_gather.py:223-238``,
+    as the plain version makes it: ok (0-d bool) iff every output step's
+    owners span at most ``window_items`` items."""
+    _check_window_args(window_items, slots_per_step)
     blk_lo, blk_hi = step_owners(cum, total, out_len, slots_per_step)
-    # the window anchored at floor(lo / 128) * 128 spans nblk * 128 items
-    ok = torch.all(blk_hi - blk_lo <= (nblk - 1) * BLK)
-    return blk_lo, nblk * BLK, ok
+    return torch.all(blk_hi - blk_lo <= window_items)
+
+
+def _window_prelude(attrs, counts, out_len):
+    """The torch ops of a window kernel's call besides its launch: the
+    prefix sum, the two outputs and the ok byte, set to true (the kernel
+    clears it where a step's owners outrun the window).  Returns (cum,
+    total, out_len, out, rank, ok)."""
+    cum, total, out_len = _prefix(attrs, counts, out_len)
+    out, rank = _empty_out(attrs, out_len)
+    ok = torch.ones((), dtype=torch.bool, device=attrs.device)
+    return cum, total, out_len, out, rank, ok
 
 
 def _empty_out(attrs, out_len):
@@ -192,11 +212,12 @@ def expand_attrs(attrs, counts, out_len=None):
     """
     if attrs.device.type == "cpu":
         return expand_attrs_plain(attrs, counts, out_len)
-    _, starts, total, out_len = _prefix(attrs, counts, out_len)
+    cum, total, out_len = _prefix(attrs, counts, out_len)
     attrs = attrs.contiguous()
     out, rank = _empty_out(attrs, out_len)
     if out_len and attrs.numel():
         a, s = attrs.shape
+        starts = _starts(cum, counts)
         counts32 = counts.to(torch.int32).contiguous()
         _launch("expand_prefix_kernel", "litegs_expand_prefix",
                 attrs.data_ptr(), starts.data_ptr(), counts32.data_ptr(),
@@ -222,11 +243,14 @@ def expand_attrs_windowed(attrs, counts, out_len=None,
       attrs:  [A, S] float32 or int32 per-item rows.
       counts: [S] int32 (or int64) per-item slot counts (>= 0).
       out_len: output slots, or None for exactly the total.
-      window_items: item-window width (a multiple of 128); the kernels'
-        window holds ``window_items + 128`` items.
-      slots_per_step: output slots per thread block.
-      dma: stage each step's attribute and start window in shared memory
-        with asynchronous copies (``expand_window_async_kernel``) instead
+      window_items: item-window width (a multiple of 128): a step's
+        owners must lie within ``window_items`` items of its first (the
+        kernels stage ``window_items + 128`` items from a 128-aligned
+        start).
+      slots_per_step: output slots per step, the unit of the window
+        check (a block of the kernels decodes one step).
+      dma: stage each step's attribute window in shared memory as well,
+        with asynchronous copies (``expand_window_async_kernel``), instead
         of reading attributes through the cache.
     Returns:
       (out [A, out_len], rank [out_len] int32, total 0-d int64, ok 0-d
@@ -235,26 +259,24 @@ def expand_attrs_windowed(attrs, counts, out_len=None,
     if attrs.device.type == "cpu":
         return expand_attrs_windowed_plain(attrs, counts, out_len,
                                            window_items, slots_per_step)
-    cum, starts, total, out_len = _prefix(attrs, counts, out_len)
-    blk_lo, window, ok = _window_plan(cum, total, out_len, window_items,
-                                      slots_per_step)
+    _check_window_args(window_items, slots_per_step)
+    # each block of the kernel plans its own step (window_step_plain)
+    cum, total, out_len, out, rank, ok = _window_prelude(attrs, counts,
+                                                         out_len)
+    a, s = attrs.shape
+    names = ("expand_window_kernel", "litegs_expand_window")
+    if dma:
+        smem = (a + 1) * (window_items + BLK) * 4
+        if smem > SMEM_MAX:
+            raise ValueError(
+                f"a [{a} + 1, {window_items + BLK}] window needs {smem} "
+                f"bytes of shared memory; a block has {SMEM_MAX}")
+        names = ("expand_window_async_kernel", "litegs_expand_window_async")
     attrs = attrs.contiguous()
-    out, rank = _empty_out(attrs, out_len)
-    if out_len and attrs.numel():
-        a, s = attrs.shape
-        if dma:
-            smem = (a + 1) * window * 4
-            if smem > SMEM_MAX:
-                raise ValueError(
-                    f"a [{a} + 1, {window}] window needs {smem} bytes of "
-                    f"shared memory; a block has {SMEM_MAX}")
-            names = ("expand_window_async_kernel",
-                     "litegs_expand_window_async")
-        else:
-            names = ("expand_window_kernel", "litegs_expand_window")
-        _launch(*names, attrs.data_ptr(), starts.data_ptr(),
-                blk_lo.data_ptr(), out.data_ptr(), rank.data_ptr(), a, s,
-                out_len, window, slots_per_step, _stream(attrs.device))
+    if out_len and s:
+        _launch(*names, attrs.data_ptr(), cum.data_ptr(), out.data_ptr(),
+                rank.data_ptr(), ok.data_ptr(), a, s, out_len, window_items,
+                slots_per_step, _stream(attrs.device))
     return out, rank, total, ok
 
 
@@ -301,8 +323,8 @@ def expand_attrs_plain(attrs, counts, out_len=None):
     the last item."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
-    cum, starts, total, out_len = _prefix(attrs, counts, out_len)
-    out, rank = _expand_plain(attrs, cum, starts, out_len)
+    cum, total, out_len = _prefix(attrs, counts, out_len)
+    out, rank = _expand_plain(attrs, cum, _starts(cum, counts), out_len)
     return out, rank, total
 
 
@@ -315,11 +337,50 @@ def expand_attrs_windowed_plain(attrs, counts, out_len=None,
     kernels and changes nothing here."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
-    cum, starts, total, out_len = _prefix(attrs, counts, out_len)
-    _, _, ok = _window_plan(cum, total, out_len, window_items,
-                            slots_per_step)
-    out, rank = _expand_plain(attrs, cum, starts, out_len)
+    cum, total, out_len = _prefix(attrs, counts, out_len)
+    ok = _window_plan(cum, total, out_len, window_items, slots_per_step)
+    out, rank = _expand_plain(attrs, cum, _starts(cum, counts), out_len)
     return out, rank, total, ok
+
+
+def window_step_plain(cum, step: int, window_items: int,
+                      slots_per_step: int, out_len: int):
+    """The plain model of one block of the window kernels: step ``step`` of
+    an expansion with the inclusive prefix sum ``cum`` (one item at
+    least).
+
+    The block finds ``lo``, the owner of the step's first slot
+    (:func:`owner_of_slots`), and applies the window check of
+    ``litegs_tpu/ops/stream_gather.py:223-238``: the owner ``hi`` of its
+    last slot, both queries clamped to ``[0, total - 1]``, lies within
+    ``lo + window_items``.  That needs one item: ``hi`` is there iff the
+    window reaches the last item or the window's last item ends past the
+    query.  Then the decode: the block stages the starts of the
+    ``window_items + 128`` items from ``lo`` rounded down to 128, and a
+    slot's owner is the last of them that starts at or before the slot (an
+    item with a zero count shares its start with the next item).
+
+    Returns (lo, ok, owner [n] int64, rank [n] int32) for the step's n
+    slots inside ``[0, out_len)``, owner and rank None when ``ok`` is
+    False (the kernel then writes nothing).  Slots past the total get the
+    values the kernel writes there.
+    """
+    s = cum.shape[0]
+    s0 = step * slots_per_step
+    n = min(slots_per_step, out_len - s0)
+    last_live = max(int(cum[-1]) - 1, 0)
+    q1 = min(s0 + slots_per_step - 1, last_live)
+    lo = int(owner_of_slots(cum, cum.new_tensor([min(s0, last_live)]))[0])
+    far = lo + window_items
+    if not (far >= s - 1 or int(cum[far]) > q1):
+        return lo, False, None, None
+    w0 = lo // BLK * BLK
+    j = torch.arange(w0, min(w0 + window_items + BLK, s), device=cum.device)
+    start = torch.where(j > 0, cum[(j - 1).clamp(min=0)],
+                        torch.zeros_like(j))
+    slots = torch.arange(s0, s0 + n, dtype=cum.dtype, device=cum.device)
+    local = torch.searchsorted(start, slots, right=True) - 1
+    return lo, True, w0 + local, (slots - start[local]).to(torch.int32)
 
 
 def gather_blocks_plain(attrs, src_lo):

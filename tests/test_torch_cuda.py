@@ -14,7 +14,8 @@ gradients 3e-4 (max |diff| / max |plain|, the scaled bar of
 tests/test_raster_pallas.py), weight_sum 2e-3, frag_count 0.5 and
 err_square_sum 1e-3 scaled; the kernel adds per-entry sums with atomics
 in no fixed order and carries its prefix in float32.  The four
-stream_gather kernels copy words and count ranks: tolerance 0.
+stream_gather kernels copy words and count ranks: tolerance 0, and the
+window kernels' ``ok`` bit for bit.
 """
 import numpy as np
 import pytest
@@ -347,6 +348,34 @@ def expansion_cases():
         640, 512, True)
     yield ("odd sizes", rng.standard_normal((3, 1001)).astype(np.float32),
            rng.integers(1, 90, 1001).astype(np.int32), 30001, 384, 200, True)
+    # lengths of 4k + 1, 4k + 2 and 4k + 3: ragged row ends, and rows of
+    # such a length start off 16-byte boundaries
+    rng = np.random.default_rng(8)
+    counts = rng.integers(0, 5, 3001).astype(np.int32)
+    counts[rng.random(3001) < 0.4] = 0
+    yield ("one row, 4k+1 slots past the total", rng.standard_normal(
+        (1, 3001)).astype(np.float32), counts,
+        int(counts.sum()) // 4 * 4 + 41, 768, 512, False)
+    counts = rng.integers(1, 4, 2000).astype(np.int32)
+    counts[1700:] = 0
+    yield ("twelve rows, 4k+2 slots short of the total", rng.integers(
+        -2 ** 31, 2 ** 31 - 1, (12, 2000)).astype(np.int32), counts,
+        int(counts.sum()) // 4 * 4 - 98, 640, 512, True)
+    counts = rng.integers(0, 6, 900).astype(np.int32)
+    yield ("4k+3 slots, 200-slot steps", rng.standard_normal(
+        (3, 900)).astype(np.float32), counts,
+        int(counts.sum()) // 4 * 4 + 7, 384, 200, False)
+    yield ("one item", rng.standard_normal((5, 1)).astype(np.float32),
+           np.array([77], np.int32), None, 128, 128, True)
+    s = 2 ** 20 + 4099
+    yield ("over 2^20 items", rng.standard_normal((3, s)).astype(
+        np.float32), rng.integers(0, 3, s).astype(np.int32), None, 768, 512,
+        False)
+    # step 0's owners 0 and 256: exactly window_items apart
+    counts = np.zeros(1024, np.int32)
+    counts[0], counts[256], counts[700] = 1, 127, 40
+    yield ("owners at the window's limit", rng.standard_normal(
+        (8, 1024)).astype(np.float32), counts, 256, 256, 128, False)
 
 
 @pytest.mark.cuda
@@ -399,6 +428,17 @@ def test_expansion_window_overrun_is_flagged(cuda_device):
             dma=dma)
         torch.cuda.synchronize()
         assert not bool(out[3]) and int(out[2]) == 301
+    # step 0's owners 0 and 257: one item past the window's limit (the case
+    # at the limit is one of expansion_cases)
+    past = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    past[0], past[257], past[700] = 1, 127, 40
+    for dma in (False, True):
+        out = stream_gather.expand_attrs_windowed(
+            attrs, past, 256, window_items=256, slots_per_step=128, dma=dma)
+        want = stream_gather.expand_attrs_windowed_plain(
+            attrs, past, 256, window_items=256, slots_per_step=128)
+        torch.cuda.synchronize()
+        assert not bool(out[3]) and not bool(want[3]) and int(out[2]) == 168
     # all-zero counts launch nothing and return empty buffers
     before = dict(stream_gather.LAUNCHES)
     out = stream_gather.expand_attrs_windowed(attrs, counts * 0)
@@ -411,6 +451,31 @@ def test_expansion_window_overrun_is_flagged(cuda_device):
     out = stream_gather.expand_attrs(attrs[:, :0], counts[:0])
     assert out[0].shape == (8, 0) and int(out[2]) == 0
     assert stream_gather.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_window_kernel_matches_block_model(cuda_device):
+    """expand_window_kernel against window_step_plain, the plain model of
+    one of its blocks, on up to 64 steps of every case: the owner of every
+    slot of the step and its rank, slots past the total included."""
+    for name, attrs, counts, out_len, window, step, _ in expansion_cases():
+        attrs_d = torch.tensor(attrs, device=cuda_device)
+        counts_d = torch.tensor(counts, device=cuda_device)
+        out, rank, total, ok = stream_gather.expand_attrs_windowed(
+            attrs_d, counts_d, out_len, window, step)
+        out, rank = out.cpu(), rank.cpu()
+        assert bool(ok), name
+        cum = torch.cumsum(torch.tensor(counts), 0)
+        n_slots = rank.shape[0]
+        steps = -(-n_slots // step)
+        for b in sorted(set(np.linspace(0, steps - 1, 64).astype(int))):
+            lo, ok_b, owner, want_rank = stream_gather.window_step_plain(
+                cum, int(b), window, step, n_slots)
+            s0 = int(b) * step
+            assert ok_b, (name, b)
+            assert torch.equal(rank[s0:s0 + step], want_rank), (name, b)
+            assert torch.equal(out[:, s0:s0 + step],
+                               torch.tensor(attrs)[:, owner]), (name, b)
 
 
 @pytest.mark.cuda
