@@ -40,7 +40,21 @@ stops the script with a nonzero exit when it fails:
      model's view 0;
   5. the Trainer through its own API on the small synthetic task of
      tests/test_training.py, at that file's PSNR bars;
-  6. a JSON line with one record per kernel, the card's name and power
+  6. the command line on a COLMAP scene at full width: ground-truth renders
+     of the serving scene for 10 cameras written as a binary COLMAP scene
+     (200,000 seed points, PNG images) under build/; python -m
+     litegs_torch.example_train's main trains it (--eval: 8 train and 2
+     test frames, SH 3, 1,000,000 target primitives, 8 epochs with two
+     densify events, a checkpoint at epoch 2, a ply at 3, test PSNR at 3
+     and 7); example_metrics scores the finish ply (its test PSNR within
+     0.01 dB of training's last); a resume from the epoch-2 checkpoint
+     restores the saved state bit for bit and finishes; a pose leg resumes
+     a checkpoint of the ground-truth gaussians with noisy extrinsics and
+     refines them at tests/test_pose.py's bars, writing viewproj.npz; the
+     raster and window kernels' launches are read around each leg (0
+     plain calls); then one learnable-pose step at 96x128 with the 'cuda'
+     backend held to the 'torch' backend's extr gradient;
+  7. a JSON line with one record per kernel, the card's name and power
      limit as nvidia-smi prints them, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -49,7 +63,10 @@ It imports neither JAX nor litegs_tpu.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -133,6 +150,17 @@ SG_RECORDS = {
         "name": "gather_blocks_kernel", "route": "cuda", "source": SG_SOURCE,
         "replaces": "litegs_tpu/ops/stream_gather.py:382"},
 }
+# COLMAP phase: cameras, seed points, epochs of the training run and of
+# the pose leg (tests/test_pose.py's 20), and the image size of the
+# learnable-pose step held between the two backends
+COLMAP_VIEWS = 10
+COLMAP_SEED_POINTS = 200_000
+COLMAP_TARGET = 1_000_000
+COLMAP_EPOCHS = 8
+POSE_EPOCHS = 20
+POSE_STEP_HW = (96, 128)
+COLMAP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_colmap")
 # integer operations per output slot of an expansion beside its A copies:
 # the binary search over a window of 640-768 starts (10 steps of about 4)
 # and the rank
@@ -960,8 +988,6 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     import torch
     from litegs_torch import config, evaluation
     from litegs_torch.ops import binning, losses, raster, raster_cuda
-    from litegs_torch.ops import raster_plain
-    from litegs_torch.ops import stream_gather as sg
     from litegs_torch.ops.projection import ndc_to_pixel
     from litegs_torch.render import _project, render, render_preprocess
     from litegs_torch.scene import pad_params
@@ -1028,34 +1054,14 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
                       f"({n_live} live) unchanged by the step")
         return state, stats, torch.stack(out).cpu().numpy()
 
-    def zero_counts():
-        raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
-        raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
-        sg.reset_counts()
-
-    def read_counts(steps: int, what: str):
-        fwd, bwd = raster_cuda.LAUNCHES, raster_cuda.LAUNCHES_BWD
-        plain = raster_plain.CALLS + raster_plain.BACKWARD_CALLS
-        print(f"{what}: {steps} steps; raster_forward launches={fwd}, "
-              f"raster_backward launches={bwd}, plain calls={plain}; "
-              f"stream_gather launches={sg.LAUNCHES}, plain calls="
-              f"{sg.PLAIN_CALLS}")
-        check_stream_counts(what, sg.LAUNCHES, sg.PLAIN_CALLS, steps)
-        if fwd != steps or bwd != steps:
-            fail(f"{what}: kernels launched {fwd} / {bwd} times for "
-                 f"{steps} steps")
-        if plain != 0:
-            fail(f"{what}: the plain raster versions ran {plain} times")
-        return fwd, bwd, sg.LAUNCHES["expand_window_kernel"]
-
     # ---- window A: steady steps ----
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
-    zero_counts()
+    zero_path_counts()
     state, _, loss_a = run(state, None, steady, STEADY_STEPS, step_ms,
                            check_culled=True)
-    fwd_a, bwd_a, win_a = read_counts(STEADY_STEPS,
-                                      "training steady window")
+    fwd_a, bwd_a, win_a = read_path_counts("training steady window",
+                                           STEADY_STEPS, 0)
     psnr1 = evaluation.score_split(state.params, active, batch, pp,
                                    sh_degree)["psnr"]
     first, last = float(loss_a[:4].mean()), float(loss_a[-4:].mean())
@@ -1072,7 +1078,7 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
                               densify_from=0, densify_until=2,
                               densification_interval=1,
                               opacity_reset_interval=100)
-    zero_counts()
+    zero_path_counts()
     stats = tstats.init_stats(cap, dev)
     state, stats, loss_s = run(state, stats, collect, STATS_STEPS)
     t0 = time.perf_counter()
@@ -1084,8 +1090,8 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     densify_s = time.perf_counter() - t0
     state = state._replace(params=params, adam=adam, active_count=grown)
     state, _, loss_g = run(state, None, steady, GROWN_STEPS)
-    fwd_b, bwd_b, win_b = read_counts(STATS_STEPS + GROWN_STEPS,
-                                      "training stats/densify window")
+    fwd_b, bwd_b, win_b = read_path_counts("training stats/densify window",
+                                           STATS_STEPS + GROWN_STEPS, 0)
     peak = torch.cuda.max_memory_allocated()
     print(f"statistics: frag_count total {float(stats.frag_count.sum()):.0f}"
           f", points with weight {int((stats.weight_sum > 0).sum())}; "
@@ -1275,6 +1281,335 @@ def phase_trainer(dev):
         fail(f"Trainer PSNR {m0['psnr']} -> {final} misses the bars")
 
 
+def write_colmap_scene(root: str, cam, frames, xyz, rgb, images):
+    """A binary COLMAP scene: cameras.bin (one PINHOLE camera), images.bin
+    (no 2D points), points3D.bin (empty tracks) and images/<name> PNGs."""
+    import PIL.Image
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", cam.id, 1, cam.width, cam.height))
+        f.write(struct.pack("<4d", cam.focal_x, cam.focal_y, cam.width / 2,
+                            cam.height / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(frames)))
+        for fr in frames:
+            f.write(struct.pack("<i4d3di", fr.id, *fr.qvec, *fr.tvec,
+                                cam.id))
+            f.write(fr.name.encode() + b"\x00" + struct.pack("<Q", 0))
+    rec = np.zeros(len(xyz), np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+        ("track_len", "<u8")]))
+    rec["id"] = np.arange(len(xyz))
+    rec["xyz"] = xyz
+    rec["rgb"] = np.round(rgb * 255)
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        f.write(rec.tobytes())
+    os.makedirs(os.path.join(root, "images"))
+    for fr, img in zip(frames, images):
+        arr = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        PIL.Image.fromarray(arr.transpose(1, 2, 0)).save(
+            os.path.join(root, "images", fr.name))
+
+
+class Timed:
+    """Wraps module attributes so that each call's host seconds are kept
+    (and, for save_checkpoint, a host copy of the tree it saves); restores
+    them on exit."""
+
+    def __init__(self, module, names, keep_tree=False):
+        self.module, self.names, self.keep_tree = module, names, keep_tree
+        self.seconds = {n: [] for n in names}
+        self.trees = []
+
+    def __enter__(self):
+        import torch
+        from litegs_torch.io import checkpoint
+        self.real = {n: getattr(self.module, n) for n in self.names}
+
+        def wrap(name, fn):
+            def timed(*a, **k):
+                if self.keep_tree and name == "save_checkpoint":
+                    self.trees.append({
+                        key: v.detach().cpu().clone() if torch.is_tensor(v)
+                        else v for key, v in checkpoint._leaves(a[2])})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[name].append(time.perf_counter() - t0)
+                if self.keep_tree and name == "load_checkpoint":
+                    self.trees.append({
+                        key: v.detach().cpu().clone() if torch.is_tensor(v)
+                        else v for key, v in checkpoint._leaves(out[1])})
+                return out
+            return timed
+
+        for n, fn in self.real.items():
+            setattr(self.module, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.module, n, fn)
+
+
+def zero_path_counts():
+    from litegs_torch.ops import raster_cuda, raster_plain
+    from litegs_torch.ops import stream_gather as sg
+    raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
+    raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
+    sg.reset_counts()
+
+
+def read_path_counts(what: str, steps: int, views: int):
+    """The launches (forward, backward, window expansion) of the path's
+    three kernels since zero_path_counts: one forward per step and per
+    evaluated view, one backward per step, two window expansions per
+    forward, no other kernel, no plain call."""
+    from litegs_torch.ops import raster_cuda, raster_plain
+    from litegs_torch.ops import stream_gather as sg
+    fwd, bwd = raster_cuda.LAUNCHES, raster_cuda.LAUNCHES_BWD
+    plain = raster_plain.CALLS + raster_plain.BACKWARD_CALLS
+    print(f"{what}: {steps} steps, {views} views evaluated; raster_forward "
+          f"launches={fwd}, raster_backward launches={bwd}, plain calls="
+          f"{plain}; stream_gather launches={sg.LAUNCHES}, plain calls="
+          f"{sg.PLAIN_CALLS}")
+    if fwd != steps + views or bwd != steps or plain:
+        fail(f"{what}: kernels launched {fwd} / {bwd} times for {steps} "
+             f"steps and {views} views, {plain} plain calls")
+    check_stream_counts(what, sg.LAUNCHES, sg.PLAIN_CALLS, steps + views)
+    return fwd, bwd, sg.LAUNCHES["expand_window_kernel"]
+
+
+def norm_quat_rows(extr):
+    out = np.array(extr, np.float64)
+    out[:, :4] /= np.linalg.norm(out[:, :4], axis=1, keepdims=True)
+    return out
+
+
+def phase_pose_step(dev):
+    """One learnable-pose step at 96x128 with the 'cuda' backend against
+    the same step with the 'torch' backend: the extr gradient within the
+    scaled 3e-4 bar."""
+    import torch
+    from litegs_torch import config
+    from litegs_torch.data import synthetic, synthetic_train
+    from litegs_torch.ops import pose
+    from litegs_torch.scene import pad_params
+    from litegs_torch.training import optimizer
+    from litegs_torch.training import statistics as tstats
+    from litegs_torch.training.trainer import (TrainState, make_train_step,
+                                               masked_chunk_aabb)
+    h, w = POSE_STEP_HW
+    data, _, _ = synthetic_train.make_task(
+        n_points=2000, n_frames=2, img_h=h, img_w=w, sh_degree=1, seed=3,
+        device=dev)
+    gt, _, _ = synthetic_train.make_gt_params(2000, 1, seed=3, device=dev)
+    gt = pad_params(gt, config.round_up(2000, 128))
+    extr = np.stack([f.extr_params() for f in synthetic.make_cameras(
+        2, h, w, seed=3)[1]])
+    extr[:, 4:] += np.random.default_rng(0).normal(0, 0.01, (2, 3))
+    op = config.OptimizationParams(learnable_viewproj=True)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        params = gt.mapped(torch.clone)
+        with torch.no_grad():
+            origin, extend = masked_chunk_aabb(params, params.capacity, 128)
+        step = make_train_step(
+            config.ModelParams(sh_degree=1), op,
+            config.PipelineParams(raster_backend=backend),
+            config.CapacityParams(params.capacity), h, w, 1.0, 1, False,
+            learnable_pose=True)
+        _, _, _, m = step(
+            TrainState(params, optimizer.init_adam(params), params.capacity,
+                       0), tstats.init_stats(params.capacity, dev), origin,
+            extend, None, data.proj[1], None, None, data.images[1],
+            pose.init_pose_state(extr, dev), 1)
+        grads[backend] = m["extr_grad"].double().cpu()
+    d = float((grads["cuda"] - grads["torch"]).abs().max())
+    scale = float(grads["torch"].abs().max())
+    print(f"learnable-pose step {h}x{w}: extr gradient cuda "
+          f"{grads['cuda'].numpy()} torch {grads['torch'].numpy()}; "
+          f"max|diff| {d:.3e} of max|torch| {scale:.3e}")
+    if not (scale > 0 and d <= BWD_TOL["grad"] * scale):
+        fail(f"learnable-pose step: extr gradient differs by {d} against "
+             f"max {scale}")
+
+
+def phase_colmap(dev, prepared, active: int) -> dict:
+    """The command line on a COLMAP scene on disk at full width (phase 6);
+    returns the path's kernel launches by record name."""
+    import torch
+    from litegs_torch import config, evaluation, example_metrics
+    from litegs_torch import example_train
+    from litegs_torch import io as lio
+    from litegs_torch.data import synthetic
+    from litegs_torch.ops import pose
+    from litegs_torch.scene import pad_params
+    from litegs_torch.training import optimizer
+    from litegs_torch.training import statistics as tstats
+    from litegs_torch.training.trainer import TrainState
+
+    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
+    scene = os.path.join(COLMAP_DIR, "scene")
+    t0 = time.perf_counter()
+    cam, frames = synthetic.make_cameras(COLMAP_VIEWS, IMG_H, IMG_W, seed=4)
+    for fr in frames:
+        fr.name = f"{fr.name}.png"
+    from litegs_torch.training.trainer import camera_batch_from_frames
+    blank = camera_batch_from_frames(
+        cam, frames, np.zeros((COLMAP_VIEWS, 3, IMG_H, IMG_W), np.float32),
+        device=dev)
+    pp = config.PipelineParams()
+    gt = [img for _, img in evaluation.render_views(prepared, active, blank,
+                                                    pp, SH_DEGREE)]
+    xyz, rgb = synthetic.make_gaussian_cloud(N_POINTS, seed=0)
+    rng = np.random.default_rng(5)
+    keep = rng.choice(N_POINTS, COLMAP_SEED_POINTS, replace=False)
+    seed_xyz = xyz[keep] + rng.normal(0, 0.01, (COLMAP_SEED_POINTS, 3))
+    write_colmap_scene(scene, cam, frames, seed_xyz, rgb[keep], gt)
+    print(f"colmap scene: {COLMAP_VIEWS} PNGs {IMG_H}x{IMG_W}, "
+          f"{COLMAP_SEED_POINTS} seed points, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = np.zeros(3, np.int64)     # forward, backward, window
+
+    def add(counts):
+        launches[:] += counts
+
+    n_train, n_test = COLMAP_VIEWS - 2, 2          # --eval: every 8th
+    model = os.path.join(COLMAP_DIR, "model")
+    common = ["-s", scene, "--eval", "--sh_degree", str(SH_DEGREE),
+              "--target_primitives", str(COLMAP_TARGET)]
+    train_args = ["--iterations", str(COLMAP_EPOCHS * n_train),
+                  "--densify_from", "2", "--densification_interval", "3",
+                  "--densify_until", "7", "--test_epochs", "3,7"]
+
+    # ---- train: start -> Trainer -> ply export and checkpoint ----
+    zero_path_counts()
+    with Timed(lio, ["save_checkpoint", "save_ply"], keep_tree=True) as io_t:
+        t0 = time.perf_counter()
+        _, state, hist = example_train.main(
+            common + train_args + ["-m", model, "--checkpoint_epochs", "2",
+                                   "--save_epochs", "3"], device=dev)
+        wall = time.perf_counter() - t0
+    steps = COLMAP_EPOCHS * n_train
+    add(read_path_counts("colmap training run", steps, 2 * n_test))
+    epoch_s = [h["seconds"] for h in hist]
+    actives = [h["active"] for h in hist]
+    print(f"colmap training run: {wall:.1f} s wall; per epoch (host clock, "
+          f"boundary included) {np.round(epoch_s, 3).tolist()} s, "
+          f"{steps / sum(epoch_s):.2f} it/s over start's loop with densify;"
+          f" active {actives}; train PSNR "
+          f"{np.round([h['psnr'] for h in hist], 2).tolist()}; test PSNR "
+          f"epoch 3 {hist[3]['test_psnr']:.3f}, epoch 7 "
+          f"{hist[7]['test_psnr']:.3f}; ply export "
+          f"{np.round(io_t.seconds['save_ply'], 3).tolist()} s; checkpoint "
+          f"{np.round(io_t.seconds['save_checkpoint'], 3).tolist()} s")
+    if len(hist) != COLMAP_EPOCHS or not np.isfinite(
+            [h["loss"] for h in hist]).all():
+        fail(f"colmap training run: history {hist}")
+    if not actives[-1] > actives[0] or len(set(actives)) < 2:
+        fail(f"colmap training run: no densify event grew the model "
+             f"{actives}")
+    if not hist[-1]["psnr"] > hist[0]["psnr"] + 3.0:
+        fail("colmap training run: train PSNR did not rise by 3 dB")
+    finish = os.path.join(model, "point_cloud", "finish", "point_cloud.ply")
+    for path in (finish, os.path.join(model, "point_cloud",
+                                      f"iteration_{4 * n_train}",
+                                      "point_cloud.ply")):
+        if not os.path.exists(path):
+            fail(f"colmap training run wrote no {path}")
+
+    # ---- metrics on the finish ply ----
+    zero_path_counts()
+    t0 = time.perf_counter()
+    res = example_metrics.main(["-s", scene, "-m", model, "--skip_train"],
+                               device=dev)
+    metrics_s = time.perf_counter() - t0
+    add(read_path_counts("colmap metrics", 0, n_test))
+    d = abs(res["test"]["psnr"] - hist[-1]["test_psnr"])
+    print(f"colmap metrics: {metrics_s:.1f} s; test {json.dumps(res['test'])}"
+          f"; |PSNR - training's last test PSNR| {d:.5f} dB")
+    if not d <= 0.01:
+        fail(f"example_metrics PSNR {res['test']['psnr']} against training's "
+             f"{hist[-1]['test_psnr']}")
+
+    # ---- resume from the epoch-2 checkpoint ----
+    zero_path_counts()
+    ckpt = os.path.join(model, "checkpoints", "chkpnt2.npz")
+    with Timed(lio, ["load_checkpoint"], keep_tree=True) as load_t:
+        t0 = time.perf_counter()
+        _, _, hist2 = example_train.main(
+            common + train_args + ["-m", model + "_resumed",
+                                   "--start_checkpoint", ckpt], device=dev)
+        wall = time.perf_counter() - t0
+    add(read_path_counts("colmap resumed run", (COLMAP_EPOCHS - 3) * n_train,
+                         2 * n_test))
+    saved, (restored,) = io_t.trees[0], load_t.trees
+    same = set(saved) == set(restored) and all(
+        torch.equal(v, restored[k]) if torch.is_tensor(v)
+        else v == restored[k] for k, v in saved.items())
+    print(f"colmap resume: {len(saved)} arrays restored bit for bit: {same};"
+          f" load {load_t.seconds['load_checkpoint'][0]:.3f} s; run "
+          f"{wall:.1f} s, epochs {[h['epoch'] for h in hist2]}, final "
+          f"test PSNR {hist2[-1]['test_psnr']:.3f}")
+    if not same or [h["epoch"] for h in hist2] != list(range(3,
+                                                             COLMAP_EPOCHS)):
+        fail("colmap resume: the restored state differs from the saved one "
+             "or the run did not finish")
+    if not os.path.exists(os.path.join(model + "_resumed", "point_cloud",
+                                       "finish", "point_cloud.ply")):
+        fail("colmap resume wrote no finish ply")
+
+    # ---- pose leg: ground-truth gaussians, noisy extrinsics ----
+    train_frames = [fr for i, fr in enumerate(frames) if i % 8]
+    true_extr = np.stack([fr.extr_params() for fr in train_frames])
+    rng = np.random.default_rng(0)
+    noisy = true_extr.copy()
+    noisy[:, 4:] += rng.normal(scale=0.01, size=(n_train, 3))
+    noisy[:, :4] += rng.normal(scale=0.004, size=(n_train, 4))
+    cap = config.auto_capacity(COLMAP_TARGET).primitive_capacity
+    params = pad_params(prepared, cap)
+    tree = {"state": TrainState(params, optimizer.init_adam(params), active,
+                                0),
+            "stats": tstats.init_stats(cap, dev),
+            "pose": pose.init_pose_state(noisy, dev)}
+    ckpt = lio.save_checkpoint(os.path.join(COLMAP_DIR, "pose_init"), -1,
+                               tree)
+    del tree, params
+    zero_path_counts()
+    tiny = "1e-12"      # frozen (the xyz schedule takes a logarithm)
+    model_pose = os.path.join(COLMAP_DIR, "model_pose")
+    t0 = time.perf_counter()
+    _, _, hist3 = example_train.main(
+        common + ["-m", model_pose, "--learnable_viewproj",
+                  "--iterations", str(POSE_EPOCHS * n_train),
+                  "--position_lr_init", tiny, "--position_lr_final", tiny,
+                  "--feature_lr", "0", "--opacity_lr", "0", "--scaling_lr",
+                  "0", "--rotation_lr", "0", "--densify_from", "1000000000",
+                  "--start_checkpoint", ckpt], device=dev)
+    wall = time.perf_counter() - t0
+    add(read_path_counts("colmap pose leg", POSE_EPOCHS * n_train, 0))
+    learned = np.load(os.path.join(model_pose, "viewproj.npz"))["extr"]
+    err0 = np.linalg.norm(norm_quat_rows(noisy) - norm_quat_rows(true_extr))
+    err1 = np.linalg.norm(norm_quat_rows(learned)
+                          - norm_quat_rows(true_extr))
+    psnr0, psnr1 = hist3[0]["psnr"], hist3[-1]["psnr"]
+    print(f"colmap pose leg: {POSE_EPOCHS * n_train} steps in {wall:.1f} s;"
+          f" extr error {err0:.5f} -> {err1:.5f} ({err1 / err0:.3f} of it);"
+          f" train PSNR epoch 0 {psnr0:.3f} -> epoch {POSE_EPOCHS - 1} "
+          f"{psnr1:.3f} dB; viewproj.npz {learned.shape}")
+    if not (err1 < 0.93 * err0 and psnr1 > psnr0 + 1.0):
+        fail(f"pose leg misses tests/test_pose.py's bars: err {err0} -> "
+             f"{err1}, PSNR {psnr0} -> {psnr1}")
+    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
+    return dict(zip(("raster_forward", "raster_backward",
+                     "expand_window_kernel"), launches.tolist()))
+
+
 def main() -> int:
     import torch
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1315,6 +1650,14 @@ def main() -> int:
         dev, prepared, active, batch, SH_DEGREE)
     print(f"training phase {time.perf_counter() - t0:.1f} s")
     phase_trainer(dev)
+    t0 = time.perf_counter()
+    colmap = phase_colmap(dev, prepared, active)
+    phase_pose_step(dev)
+    print(f"colmap phase {time.perf_counter() - t0:.1f} s; launches on its "
+          f"path {colmap}")
+    fwd_launches += colmap["raster_forward"]
+    bwd["launches"] += colmap["raster_backward"]
+    win_training += colmap["expand_window_kernel"]
     fwd["launches"] = fwd_launches
     fwd["max_abs_err"] = max(fwd["max_abs_err"], worst_fwd)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], worst_bwd)

@@ -5,5 +5,5 @@ package's module tree and names; each TPU kernel becomes a CUDA kernel
 written by hand (``csrc/``, built on first use by ``ops/_kernels.py``).
 It imports neither JAX nor ``litegs_tpu``.
 """
-from . import (config, data, evaluation, metrics, ops, render,  # noqa: F401
-               scene, training, utils)
+from . import (config, data, evaluation, io, metrics, ops,  # noqa: F401
+               render, scene, training, utils)

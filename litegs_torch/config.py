@@ -14,8 +14,8 @@ Differences from the JAX package:
   here.  ``BINNING_STREAM`` is ported as a module constant and is on by
   default; it reads no environment variable.
 * The render path sizes its buffers exactly from the data, so it takes no
-  :class:`CapacityParams`; the class stays for the training slice, which
-  keeps the overflow-safe step of the JAX trainer.
+  :class:`CapacityParams`; the training path uses only its
+  ``primitive_capacity``, the padded model size (``auto_capacity``).
 """
 from __future__ import annotations
 
@@ -124,6 +124,16 @@ class CapacityParams:
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def auto_capacity(target_primitives: int) -> CapacityParams:
+    """The padded model size for a primitive budget: the
+    ``primitive_capacity`` of ``litegs_tpu.config.auto_capacity``, so the
+    padded size and the densify budget equal the JAX package's.  The
+    per-view capacities it also derives size buffers the port does not
+    have."""
+    return CapacityParams(
+        primitive_capacity=round_up(int(target_primitives * 1.08), 128 * 128))
 
 
 def get_default_arg():

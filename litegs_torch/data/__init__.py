@@ -1,2 +1,2 @@
 from . import camera, synthetic  # noqa: F401
-from .camera import FrameInfo, PinholeCamera  # noqa: F401
+from .camera import FrameInfo, PinholeCamera, camera_dataset_norm  # noqa: F401

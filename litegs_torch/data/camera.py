@@ -1,7 +1,9 @@
 """Camera model and per-frame data (host side, numpy).
 
-The pinhole camera and frame of ``litegs_tpu/data/camera.py``: DX-style
-row-vector matrices, per-frame view matrices and frustum planes.
+The camera stack of ``litegs_tpu/data/camera.py``: DX-style row-vector
+matrices, per-frame view matrices and frustum planes, the camera
+normalization used for the spatial learning-rate scale, and image loading
+with the reference's resize policy.
 """
 from __future__ import annotations
 
@@ -70,3 +72,34 @@ class FrameInfo:
 
     def extr_params(self) -> np.ndarray:
         return np.concatenate([self.qvec, self.tvec]).astype(np.float32)
+
+
+def camera_dataset_norm(frames: list[FrameInfo]) -> tuple[np.ndarray, float]:
+    """Scene translate/radius from camera centers (litegs/data.py:217-234)."""
+    centers = np.stack([f.camera_center() for f in frames], axis=1)
+    avg = centers.mean(axis=1, keepdims=True)
+    diagonal = np.linalg.norm(centers - avg, axis=0).max()
+    radius = float(diagonal * 1.1)
+    return -avg.flatten(), radius
+
+
+def load_image(path: str, downsample: int = -1) -> np.ndarray:
+    """Load an image as [3, H, W] uint8 with LiteGS's resize policy
+    (litegs/data.py:86-110): explicit 1/2/4/8 downsample, or auto-rescale
+    widths > 1600 px."""
+    import PIL.Image
+    image = PIL.Image.open(path)
+    orig_w, orig_h = image.size
+    if downsample in (1, 2, 4, 8):
+        resolution = (round(orig_w / downsample), round(orig_h / downsample))
+    else:
+        if downsample == -1:
+            global_down = orig_w / 1600 if orig_w > 1600 else 1
+        else:
+            global_down = orig_w / downsample
+        scale = float(global_down)
+        resolution = (int(orig_w / scale), int(orig_h / scale))
+    arr = np.array(image.resize(resolution), dtype=np.uint8)
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, axis=-1)
+    return arr[..., :3].transpose(2, 0, 1)

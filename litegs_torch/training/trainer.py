@@ -28,6 +28,7 @@ import torch
 
 from .. import config as cfg
 from ..ops import losses
+from ..ops import pose as pose_ops
 from ..ops import raster as raster_ops
 from ..render import render, render_preprocess
 from ..scene import cluster
@@ -73,7 +74,8 @@ def masked_chunk_aabb(params: GaussianModel, active_count: int,
 def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
                     pp: cfg.PipelineParams, caps: cfg.CapacityParams,
                     img_h: int, img_w: int, spatial_lr_scale: float,
-                    sh_degree: int, collect_stats: bool):
+                    sh_degree: int, collect_stats: bool,
+                    learnable_pose: bool = False):
     """Build the per-iteration step for one configuration.
 
     Returns ``step(state, stats, chunk_origin, chunk_extend, view, proj,
@@ -82,6 +84,17 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
     ``step`` advanced; ``metrics`` holds device tensors (``loss``,
     ``psnr``, ``sizes`` and, on statistics steps, ``tile_count``).
 
+    With ``learnable_pose`` (op.learnable_viewproj) the step is
+    ``step(..., gt_image, pose, frame_idx) -> (state, stats, pose,
+    metrics)``: the view is rebuilt from the frame's row of ``pose.extr``
+    with gradient (``ops.pose.camera_from_extr``; the ``view``, ``planes``
+    and ``center`` arguments are not read), the frame's planes and centre
+    from the same row without gradient, and the row is updated by
+    ``sparse_pose_adam`` (JAX trainer.py:115-131).  The view's gradient
+    reaches the row through the projection chain's autograd from the
+    raster backward's outputs.  A step cannot overflow, so the pose update
+    is always applied; ``metrics["extr_grad"]`` is the row's gradient.
+
     On statistics steps with the ``'cuda'`` backend the densification
     statistics ride the same backward-kernel run as the parameter
     gradients (the stats sink of ``ops.raster.rasterize``); the ``'torch'``
@@ -89,10 +102,6 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
     explicit ``raster_stats`` pass, as the JAX trainer does on its jnp
     backend.
     """
-    if op.learnable_viewproj:
-        raise NotImplementedError(
-            "pose refinement (op.learnable_viewproj) is not ported yet: "
-            "ROADMAP Queue 1, item 11")
     tile_h, tile_w = pp.tile_size
     tiles_x = math.ceil(img_w / tile_w)
     tiles_total = math.ceil(img_h / tile_h) * tiles_x
@@ -101,9 +110,16 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
 
     def step(state: TrainState, stats: statistics.StatsState,
              chunk_origin, chunk_extend, view, proj, planes, center,
-             gt_image):
+             gt_image, pose: Optional[pose_ops.PoseState] = None,
+             frame_idx: Optional[int] = None):
         params = state.params
         params.zero_grad(set_to_none=True)
+        if learnable_pose:
+            extr_row = pose.extr[frame_idx].detach().requires_grad_(True)
+            view, planes, center = pose_ops.camera_from_extr(extr_row, proj)
+            # culling planes and SH view dirs carry no pose gradient
+            # (reference: frustum/no_grad dirs, render/__init__.py:40)
+            planes, center = planes.detach(), center.detach()
         culled = render_preprocess(params, chunk_origin, chunk_extend,
                                    planes, center, sh_degree, pp)
         sink = (raster_ops.zero_stats_sink(culled.xyz.shape[1],
@@ -155,7 +171,13 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
             # per-tile blend depth (reference update_tile_blend_count,
             # statistic_helper.py:68-79; feeds complexity_sorted_tiles)
             metrics["tile_count"] = aux.table.tile_count
-        return state._replace(step=state.step + 1), stats, metrics
+        state = state._replace(step=state.step + 1)
+        if not learnable_pose:
+            return state, stats, metrics
+        metrics["extr_grad"] = extr_row.grad
+        pose = pose_ops.sparse_pose_adam(pose, frame_idx, extr_row.grad,
+                                         lr=op.pose_lr)
+        return state, stats, pose, metrics
 
     return step
 
@@ -194,12 +216,11 @@ class Trainer:
     data: CameraBatch
     spatial_lr_scale: float
     seed: int = 0
+    # per-frame extrinsics [F, 7] (qvec+tvec); required when
+    # op.learnable_viewproj -- the pose-refinement initialization
+    extr_init: Optional[np.ndarray] = None
 
     def __post_init__(self):
-        if self.op.learnable_viewproj:
-            raise NotImplementedError(
-                "pose refinement (op.learnable_viewproj) is not ported "
-                "yet: ROADMAP Queue 1, item 11")
         if self.pp.batch_views > 1:
             raise NotImplementedError(
                 "batched views (pp.batch_views > 1) are not ported yet: "
@@ -215,6 +236,13 @@ class Trainer:
         self.generator = torch.Generator().manual_seed(self.seed)
         # per-tile max blend count over the last statistics epoch
         self.tile_blend_max = None
+        self.pose_state = None
+        if self.op.learnable_viewproj:
+            if self.extr_init is None:
+                raise ValueError(
+                    "learnable_viewproj requires extr_init ([F,7] per frame)")
+            self.pose_state = pose_ops.init_pose_state(self.extr_init,
+                                                       self.device)
 
     # -- setup ---------------------------------------------------------
 
@@ -253,7 +281,8 @@ class Trainer:
         if key not in self._step_cache:
             self._step_cache[key] = make_train_step(
                 self.lp, self.op, self.pp, self.caps, self.img_h,
-                self.img_w, self.spatial_lr_scale, sh_degree, collect)
+                self.img_w, self.spatial_lr_scale, sh_degree, collect,
+                learnable_pose=self.op.learnable_viewproj)
         return self._step_cache[key]
 
     # -- main loop -----------------------------------------------------
@@ -279,9 +308,13 @@ class Trainer:
         pending = []
         for i in frame_ids:
             i = int(i)
-            state, stats, metrics = step_fn(
-                state, stats, origin, extend, d.view[i], d.proj[i],
-                d.planes[i], d.center[i], d.images[i])
+            args = (state, stats, origin, extend, d.view[i], d.proj[i],
+                    d.planes[i], d.center[i], d.images[i])
+            if self.pose_state is None:
+                state, stats, metrics = step_fn(*args)
+            else:
+                state, stats, self.pose_state, metrics = step_fn(
+                    *args, self.pose_state, i)
             pending.append(metrics)
         got = torch.stack([torch.stack([m["loss"], m["psnr"]])
                            for m in pending]).cpu().numpy()
@@ -357,6 +390,18 @@ class Trainer:
                              data.proj[i], data.planes[i], data.center[i])
             psnrs.append(losses.psnr(img, data.images[i]))
         return float(torch.stack(psnrs).mean())
+
+    # -- IO normalization hooks: the identity on one device; a trainer
+    # over several devices gathers and re-places its sharded state through
+    # the same interface, so training.start checkpoints any trainer alike
+    def stats_for_io(self, stats):
+        return stats
+
+    def stats_from_io(self, host_stats):
+        return host_stats
+
+    def state_from_io(self, state: TrainState) -> TrainState:
+        return state
 
 
 def camera_batch_from_frames(cam, frames, images,

@@ -546,3 +546,113 @@ def test_view_without_rows_gives_empty_table_on_every_route(cuda_device, n):
             a, b = getattr(off, field), getattr(on, field)
             assert torch.equal(a, b) if torch.is_tensor(a) else a == b, \
                 (route, field)
+
+
+@pytest.mark.cuda
+def test_learnable_pose_step_matches_torch_backend(cuda_device):
+    """One learnable-pose step with the kernels against the same step with
+    the plain backend: the extr gradient and the parameters within the
+    scaled 3e-4 bar."""
+    from litegs_torch.ops import pose
+    dev = cuda_device
+    h, w = 96, 128
+    data, _, _ = synthetic_train.make_task(
+        n_points=2000, n_frames=2, img_h=h, img_w=w, sh_degree=1, seed=3,
+        device=dev)
+    gt, _, _ = synthetic_train.make_gt_params(2000, 1, seed=3, device=dev)
+    gt = pad_params(gt, config.round_up(2000, 128))
+    extr = np.stack([f.extr_params() for f in synthetic.make_cameras(
+        2, h, w, seed=3)[1]])
+    extr[:, 4:] += np.random.default_rng(0).normal(0, 0.01, (2, 3))
+    op = config.OptimizationParams(learnable_viewproj=True)
+    out = {}
+    for backend in ("cuda", "torch"):
+        params = gt.mapped(torch.clone)
+        with torch.no_grad():
+            origin, extend = masked_chunk_aabb(params, params.capacity, 128)
+        step = make_train_step(
+            config.ModelParams(sh_degree=1), op,
+            config.PipelineParams(raster_backend=backend),
+            config.CapacityParams(params.capacity), h, w, 1.0, 1, False,
+            learnable_pose=True)
+        raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
+        state, _, new_pose, m = step(
+            TrainState(params, optimizer.init_adam(params), params.capacity,
+                       0), statistics.init_stats(params.capacity, dev),
+            origin, extend, None, data.proj[1], None, None, data.images[1],
+            pose.init_pose_state(extr, dev), 1)
+        assert raster_cuda.LAUNCHES_BWD == (backend == "cuda")
+        out[backend] = (m["extr_grad"], state.params.xyz.detach(),
+                        new_pose.extr)
+    for a, b in zip(out["cuda"], out["torch"]):
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= 3e-4 * scale
+    assert not torch.equal(out["cuda"][2][1], torch.tensor(
+        extr[1], device=dev))
+
+
+def _write_colmap_text(root, cam, frames, xyz, rgb, images):
+    import os
+    import PIL.Image
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    with open(os.path.join(sparse, "cameras.txt"), "w") as f:
+        f.write(f"{cam.id} PINHOLE {cam.width} {cam.height} {cam.focal_x} "
+                f"{cam.focal_y} {cam.width / 2} {cam.height / 2}\n")
+    with open(os.path.join(sparse, "images.txt"), "w") as f:
+        for fr in frames:
+            q, t = fr.qvec, fr.tvec
+            f.write(f"{fr.id} {q[0]} {q[1]} {q[2]} {q[3]} {t[0]} {t[1]} "
+                    f"{t[2]} {cam.id} {fr.name}\n\n")
+    with open(os.path.join(sparse, "points3D.txt"), "w") as f:
+        for i in range(xyz.shape[0]):
+            r, g, b = (rgb[i] * 255).astype(int)
+            f.write(f"{i} {xyz[i, 0]} {xyz[i, 1]} {xyz[i, 2]} {r} {g} {b} "
+                    "0.5 0 0\n")
+    os.makedirs(os.path.join(root, "images"))
+    for fr, img in zip(frames, images):
+        arr = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        PIL.Image.fromarray(arr.transpose(1, 2, 0)).save(
+            os.path.join(root, "images", fr.name))
+
+
+@pytest.mark.cuda
+def test_cli_train_metrics_resume_on_card(cuda_device, tmp_path):
+    """The command line on a small COLMAP scene with the kernels: train,
+    score the finish ply, resume from a checkpoint."""
+    import os
+    from litegs_torch import example_metrics, example_train
+    dev = cuda_device
+    data, xyz, rgb = synthetic_train.make_task(
+        n_points=400, n_frames=9, img_h=48, img_w=64, sh_degree=1, seed=5,
+        device=dev)
+    cam, frames = synthetic.make_cameras(9, 48, 64, seed=5)
+    for fr in frames:
+        fr.name += ".png"
+    scene = str(tmp_path / "scene")
+    _write_colmap_text(scene, cam, frames, xyz.astype(np.float64), rgb,
+                       data.images)
+    model = str(tmp_path / "model")
+    common = ["-s", scene, "--eval", "--iterations", "48", "--sh_degree",
+              "1", "--target_primitives", "1024", "--densify_from", "1",
+              "--densify_until", "4"]
+    raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
+    raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
+    trainer, state, hist = example_train.main(
+        common + ["-m", model, "--test_epochs", "5",
+                  "--checkpoint_epochs", "2"], device=dev)
+    steps = trainer.total_epochs * trainer.n_frames     # 6 epochs of 7
+    assert state.params.xyz.is_cuda and len(hist) == 6
+    assert raster_cuda.LAUNCHES == steps + 2     # the 2 test views
+    assert raster_cuda.LAUNCHES_BWD == steps
+    assert raster_plain.CALLS + raster_plain.BACKWARD_CALLS == 0
+    assert hist[-1]["psnr"] > hist[0]["psnr"] + 3.0
+    res = example_metrics.main(["-s", scene, "-m", model, "--skip_train"],
+                               device=dev)
+    assert abs(res["test"]["psnr"] - hist[-1]["test_psnr"]) <= 0.01
+    _, _, hist2 = example_train.main(
+        common + ["-m", model + "_resumed", "--start_checkpoint",
+                  os.path.join(model, "checkpoints", "chkpnt2.npz")],
+        device=dev)
+    assert [h["epoch"] for h in hist2] == [3, 4, 5]

@@ -241,9 +241,13 @@ def test_prune_abort_and_unported_options():
                          sh_degree=0, device=CPU)[0]
     kw = dict(lp=tcfg.ModelParams(), dp=tcfg.DensifyParams(),
               caps=tcfg.CapacityParams(256), data=data, spatial_lr_scale=1.0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(op=tcfg.OptimizationParams(learnable_viewproj=True),
-                pp=tcfg.PipelineParams(), **kw)
+    # pose refinement is ported: it needs the frames' extrinsics
+    pose_op = tcfg.OptimizationParams(learnable_viewproj=True)
+    with pytest.raises(ValueError, match="requires extr_init"):
+        Trainer(op=pose_op, pp=tcfg.PipelineParams(), **kw)
+    trainer = Trainer(op=pose_op, pp=tcfg.PipelineParams(),
+                      extr_init=np.zeros((1, 7), np.float32), **kw)
+    assert tuple(trainer.pose_state.extr.shape) == (1, 7)
     with pytest.raises(NotImplementedError, match="item 12"):
         Trainer(op=tcfg.OptimizationParams(),
                 pp=tcfg.PipelineParams(batch_views=2), **kw)

@@ -90,6 +90,31 @@ def test_training_entry_points_default_to_cuda():
             fn()
 
 
+def test_io_entry_points_default_to_cuda(tmp_path):
+    """start, both command-line entry points and the ply loader raise
+    without a card unless the CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from litegs_torch import config, example_metrics, example_train, io
+    from litegs_torch.training import start
+    args = ["-s", str(tmp_path), "-m", str(tmp_path / "model")]
+    for fn in (lambda: start(*config.get_default_arg()),
+               lambda: example_train.main(args),
+               lambda: example_metrics.main(args),
+               lambda: io.load_ply(str(tmp_path / "missing.ply"))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()
+
+
+def test_io_and_pose_modules_import_no_jax():
+    for rel in ("io/__init__.py", "io/checkpoint.py", "io/colmap.py",
+                "io/ply.py", "data/video.py", "ops/pose.py",
+                "training/start.py", "example_train.py",
+                "example_metrics.py"):
+        roots = set(_imported_roots(ROOT / "litegs_torch" / rel))
+        assert not roots & set(FORBIDDEN), rel
+
+
 def test_stream_gather_imports_no_jax():
     path = ROOT / "litegs_torch" / "ops" / "stream_gather.py"
     roots = set(_imported_roots(path))
