@@ -54,7 +54,19 @@ stops the script with a nonzero exit when it fails:
      raster and window kernels' launches are read around each leg (0
      plain calls); then one learnable-pose step at 96x128 with the 'cuda'
      backend held to the 'torch' backend's extr gradient;
-  7. a JSON line with one record per kernel, the card's name and power
+  7. batched views on the serving scene: render_batch at B = 2 and 4 (one
+     forward launch over a merged B x T tile grid whose tile rows wrap per
+     view) bit-equal to B single renders (images, tile outputs,
+     primitive_visible, sizes), the merged backward at BWD_TOL of the B
+     single backwards with frag_count equal, both merged kernels timed
+     against the sum of their single launches; one make_batch_train_step
+     at B = 2 against the mean of two single-view losses through the same
+     sparse Adam (parameters within 1e-5 of each field's largest value,
+     moments at the gradient bar); ms per step and per view, device busy
+     time and kernels per step at B = 1, 2 and 4; and example_train
+     --batch_views 2 on phase 6's COLMAP scene beside phase 6's B = 1 run;
+     every launch counted;
+  8. a JSON line with one record per kernel, the card's name and power
      limit as nvidia-smi prints them, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -161,6 +173,13 @@ POSE_EPOCHS = 20
 POSE_STEP_HW = (96, 128)
 COLMAP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "chip_smoke_colmap")
+# batched views (phase 7): the batch sizes held to single views and timed,
+# the timed steps per batch size, the warm-up steps left out of their
+# median, and the steps profiled
+BATCH_SIZES = (2, 4)
+BATCH_STEPS = 8
+BATCH_WARMUP = 2
+BATCH_PROFILE_STEPS = 4
 # integer operations per output slot of an expansion beside its A copies:
 # the binary search over a window of 640-768 starts (10 steps of about 4)
 # and the rank
@@ -969,6 +988,31 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
     return record, batch, sg_launches["expand_window_kernel"]
 
 
+def profile_steps(fn, n_steps: int):
+    """Run ``fn()`` (``n_steps`` steps) under torch.profiler: (wall ms,
+    device busy ms, device kernels and copies, each per step, and the 8
+    host operators with the most device time of their own kernels as
+    (name, ms per step))."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in device)
+    top = sorted((e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)[:8]
+    return (wall_us / n_steps / 1e3, busy_us / n_steps / 1e3,
+            sum(e.count for e in device) / n_steps,
+            [(e.key, e.self_device_time_total / n_steps / 1e3) for e in top])
+
+
 def chunk_snapshot(state, chunks, chunk_size: int):
     """Copies of every parameter and moment of the given chunks."""
     out = []
@@ -1163,28 +1207,17 @@ def phase_training(dev, prepared, active: int, batch, sh_degree: int):
         + f"; sum {total:.3f} ms (binning: the default streaming route)")
 
     # ---- the device's busy share over one epoch of steps ----
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, _, _ = run(state, None, steady, n_views)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in device)
-    # operators (host rows) by the device time of their own kernels
-    top = sorted((e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CPU),
-                 key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profiled {n_views} steps: wall {wall_us / n_views / 1e3:.3f} "
-          f"ms/step, device busy {busy_us / n_views / 1e3:.3f} ms/step "
-          f"({100 * busy_us / wall_us:.1f}% of wall), "
-          f"{sum(e.count for e in device) / n_views:.0f} device kernels and "
-          "copies per step; top by device time (ms/step): " + ", ".join(
-              f"{e.key} {e.self_device_time_total / n_views / 1e3:.3f}"
-              for e in top))
+    box = [state]
+
+    def epoch():
+        box[0] = run(box[0], None, steady, n_views)[0]
+
+    wall, busy, kernels, top = profile_steps(epoch, n_views)
+    state = box[0]
+    print(f"profiled {n_views} steps: wall {wall:.3f} ms/step, device busy "
+          f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of wall), "
+          f"{kernels:.0f} device kernels and copies per step; top by device "
+          "time (ms/step): " + ", ".join(f"{k} {ms:.3f}" for k, ms in top))
 
     # ---- the backward kernel alone on view 0, and against its plain ----
     # ---- version on sampled tiles ----
@@ -1364,23 +1397,32 @@ def zero_path_counts():
     sg.reset_counts()
 
 
-def read_path_counts(what: str, steps: int, views: int):
+def read_path_counts(what: str, steps: int, views: int,
+                     step_views: int = 1):
     """The launches (forward, backward, window expansion) of the path's
     three kernels since zero_path_counts: one forward per step and per
-    evaluated view, one backward per step, two window expansions per
-    forward, no other kernel, no plain call."""
+    evaluated view, one backward per step, two window expansions per view
+    binned (``step_views`` per step), no other kernel, no plain call."""
+    return read_counts(what, steps + views, steps, steps * step_views + views)
+
+
+def read_counts(what: str, forwards: int, backwards: int, binned: int):
+    """The path's kernel launches since zero_path_counts against the
+    expected forwards, backwards and views binned (two window expansions
+    each); no other kernel, no plain call."""
     from litegs_torch.ops import raster_cuda, raster_plain
     from litegs_torch.ops import stream_gather as sg
     fwd, bwd = raster_cuda.LAUNCHES, raster_cuda.LAUNCHES_BWD
     plain = raster_plain.CALLS + raster_plain.BACKWARD_CALLS
-    print(f"{what}: {steps} steps, {views} views evaluated; raster_forward "
-          f"launches={fwd}, raster_backward launches={bwd}, plain calls="
-          f"{plain}; stream_gather launches={sg.LAUNCHES}, plain calls="
+    print(f"{what}: {forwards} forwards, {backwards} backwards, {binned} "
+          f"views binned expected; raster_forward launches={fwd}, "
+          f"raster_backward launches={bwd}, plain calls={plain}; "
+          f"stream_gather launches={sg.LAUNCHES}, plain calls="
           f"{sg.PLAIN_CALLS}")
-    if fwd != steps + views or bwd != steps or plain:
-        fail(f"{what}: kernels launched {fwd} / {bwd} times for {steps} "
-             f"steps and {views} views, {plain} plain calls")
-    check_stream_counts(what, sg.LAUNCHES, sg.PLAIN_CALLS, steps + views)
+    if fwd != forwards or bwd != backwards or plain:
+        fail(f"{what}: kernels launched {fwd} / {bwd} times for {forwards} "
+             f"forwards and {backwards} backwards, {plain} plain calls")
+    check_stream_counts(what, sg.LAUNCHES, sg.PLAIN_CALLS, binned)
     return fwd, bwd, sg.LAUNCHES["expand_window_kernel"]
 
 
@@ -1439,9 +1481,11 @@ def phase_pose_step(dev):
              f"max {scale}")
 
 
-def phase_colmap(dev, prepared, active: int) -> dict:
+def phase_colmap(dev, prepared, active: int):
     """The command line on a COLMAP scene on disk at full width (phase 6);
-    returns the path's kernel launches by record name."""
+    returns the path's kernel launches by record name, and the training
+    run's argv (less -m), it/s and test PSNRs; the scene stays on disk
+    for phase 7."""
     import torch
     from litegs_torch import config, evaluation, example_metrics
     from litegs_torch import example_train
@@ -1605,9 +1649,291 @@ def phase_colmap(dev, prepared, active: int) -> dict:
     if not (err1 < 0.93 * err0 and psnr1 > psnr0 + 1.0):
         fail(f"pose leg misses tests/test_pose.py's bars: err {err0} -> "
              f"{err1}, PSNR {psnr0} -> {psnr1}")
-    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
+    run_b1 = {"argv": common + train_args, "epoch_s": epoch_s,
+              "test_psnr": (hist[3]["test_psnr"], hist[7]["test_psnr"])}
     return dict(zip(("raster_forward", "raster_backward",
-                     "expand_window_kernel"), launches.tolist()))
+                     "expand_window_kernel"), launches.tolist())), run_b1
+
+
+def sliced_grads(g, lo: int, hi: int):
+    """The PointGrads of points [lo, hi)."""
+    return type(g)(*[None if x is None else x[..., lo:hi] for x in g])
+
+
+def check_batched_render(dev, prepared, active: int, batch, sh_degree: int,
+                         b: int, counts):
+    """render_batch over views 0..b-1 with its launches counted, held to b
+    single renders (images, tile outputs, primitive_visible and sizes bit
+    for bit); then the merged backward held to the b single backwards and
+    both merged kernels timed against the sum of the single launches.
+    Returns the largest backward difference."""
+    import torch
+    from litegs_torch import config
+    from litegs_torch.ops import raster_cuda
+    from litegs_torch.render import render, render_batch, render_preprocess
+    from litegs_torch.training.trainer import masked_chunk_aabb
+    pp = config.PipelineParams()
+    img_h, img_w = batch.images.shape[-2:]
+    with torch.no_grad():
+        origin, extend = masked_chunk_aabb(prepared, active, pp.cluster_size)
+        culled = [render_preprocess(prepared, origin, extend,
+                                    batch.planes[i], batch.center[i],
+                                    sh_degree, pp) for i in range(b)]
+        zero_path_counts()
+        out = render_batch(culled, batch.view[:b], batch.proj[:b], img_h,
+                           img_w, pp)
+        torch.cuda.synchronize()
+        counts += read_counts(f"render_batch B={b}", 1, 0, b)
+        singles = [render(culled[v], batch.view[v], batch.proj[v], img_h,
+                          img_w, pp) for v in range(b)]
+    aux, tab = out.aux, out.aux.table
+    view_tiles = tab.tile_count.numel() // b
+    tiles_x = -(-img_w // pp.tile_size[1])
+    tiles_y = view_tiles // tiles_x
+    for v, one in enumerate(singles):
+        rows = slice(v * view_tiles, (v + 1) * view_tiles)
+        same = (torch.equal(out.imgs[v], one.img)
+                and torch.equal(aux.tiles_color[rows], one.aux.tiles_color)
+                and torch.equal(aux.tiles_trans[rows], one.aux.tiles_trans)
+                and torch.equal(out.primitive_visible[v],
+                                one.primitive_visible)
+                and torch.equal(out.sizes[v], one.sizes))
+        if not same:
+            fail(f"render_batch B={b}: view {v} differs from its own render")
+
+    # the merged backward against each view's own, seeded cotangents
+    kargs = (aux.mean_pix, aux.inv_cov, aux.color_chan, aux.opacity,
+             tab.sorted_point, tab.tile_start, tab.tile_count, tiles_x,
+             *pp.tile_size)
+    sargs = [(a.mean_pix, a.inv_cov, a.color_chan, a.opacity,
+              a.table.sorted_point, a.table.tile_start, a.table.tile_count,
+              tiles_x, *pp.tile_size) for a in (one.aux for one in singles)]
+    col, trans = aux.tiles_color, aux.tiles_trans
+    gen = torch.Generator(device=dev).manual_seed(b)
+    cot = (torch.randn(col.shape, generator=gen, device=dev),
+           torch.randn(trans.shape, generator=gen, device=dev))
+    merged = raster_cuda.raster_backward(*kargs, col, trans, *cot,
+                                         with_stats=True, tiles_y=tiles_y)
+    off, worst, frags = out.point_offsets, 0.0, 0.0
+    for v, one in enumerate(singles):
+        rows = slice(v * view_tiles, (v + 1) * view_tiles)
+        own = raster_cuda.raster_backward(
+            *sargs[v], one.aux.tiles_color, one.aux.tiles_trans,
+            cot[0][rows], cot[1][rows], with_stats=True)
+        d, _ = check_backward(sliced_grads(merged, off[v], off[v + 1]), own,
+                              f"merged B={b} view {v}")
+        worst = max(worst, d)
+        frags += float(own.frag_count.double().sum())
+
+    # merged kernels against the sum of the single launches
+    fwd_ms = time_ms(lambda: raster_cuda.raster_forward(
+        *kargs, table_checked=True, tiles_y=tiles_y))
+    fwd_sum = sum(time_ms(lambda a=a: raster_cuda.raster_forward(
+        *a, table_checked=True)) for a in sargs)
+    bwd_ms = time_ms(lambda: raster_cuda.raster_backward(
+        *kargs, col, trans, *cot, table_checked=True, tiles_y=tiles_y))
+    bwd_sum = sum(time_ms(lambda v=v, a=a: raster_cuda.raster_backward(
+        *a, singles[v].aux.tiles_color, singles[v].aux.tiles_trans,
+        cot[0][v * view_tiles:(v + 1) * view_tiles],
+        cot[1][v * view_tiles:(v + 1) * view_tiles], table_checked=True))
+        for v, a in enumerate(sargs))
+    print(f"render_batch B={b}: {b} views bit-equal to their own renders "
+          f"(images, tiles, primitive_visible, sizes "
+          f"{out.sizes.tolist()}); merged backward max|diff| {worst:.3e}, "
+          f"frag_count equal ({frags:.0f} pairs); merged grid "
+          f"{tab.tile_count.numel()} tiles, {tab.num_entries} entries: "
+          f"forward kernel {fwd_ms:.4f} ms against {fwd_sum:.4f} ms for "
+          f"{b} single launches ({fwd_ms / fwd_sum:.4f}), backward "
+          f"{bwd_ms:.4f} ms against {bwd_sum:.4f} ({bwd_ms / bwd_sum:.4f})")
+    return worst
+
+
+def phase_batched(dev, prepared, active: int, batch, sh_degree: int):
+    """Batched views at full width (phase 7): render_batch at B = 2 and 4
+    against single renders, one B = 2 step against the mean of two
+    single-view losses through the same sparse Adam, and steps timed at
+    B = 1, 2 and 4.  Returns (launches [forward, backward, window], the
+    largest backward difference)."""
+    import torch
+    from litegs_torch import config
+    from litegs_torch.ops import losses
+    from litegs_torch.render import render, render_preprocess
+    from litegs_torch.scene import cluster, pad_params
+    from litegs_torch.training import optimizer
+    from litegs_torch.training.trainer import (TrainState,
+                                               make_batch_train_step,
+                                               make_train_step,
+                                               masked_chunk_aabb)
+    t_phase = time.perf_counter()
+    counts = np.zeros(3, np.int64)
+    worst = max(check_batched_render(dev, prepared, active, batch, sh_degree,
+                                     b, counts) for b in BATCH_SIZES)
+
+    # ---- one B = 2 step against two single-view losses' mean ----
+    n_views, _, img_h, img_w = batch.images.shape
+    pp = config.PipelineParams()
+    lp = config.ModelParams(sh_degree=sh_degree)
+    op = config.OptimizationParams()
+    chunk = pp.cluster_size
+    # the training phase's model: sh_0 perturbed, padded for growth
+    cap = config.round_up(int(active * CAPACITY_FACTOR), chunk)
+    caps = config.CapacityParams(primitive_capacity=cap)
+    rng = np.random.default_rng(3)
+    base = prepared.mapped(torch.clone)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        base.sh_0 += torch.from_numpy(rng.normal(
+            0.0, SH0_NOISE, tuple(base.sh_0.shape)).astype(np.float32)
+        ).to(dev)
+    base = pad_params(base, cap)
+    with torch.no_grad():
+        origin, extend = masked_chunk_aabb(base, active, chunk)
+    adam0 = optimizer.init_adam(base)
+    for m in adam0.exp_avg.values():
+        m.normal_(0.0, 1e-4, generator=gen)
+    for v in adam0.exp_avg_sq.values():
+        v.uniform_(1e-8, 1e-6, generator=gen)
+
+    def fresh():
+        return TrainState(base.mapped(torch.clone), optimizer.AdamState(
+            *[{k: t.clone() for k, t in d.items()} for d in adam0]),
+            active, 0)
+
+    state_b, _, mb = make_batch_train_step(
+        lp, op, pp, caps, img_h, img_w, 1.0, sh_degree, 2, False)(
+        fresh(), None, origin, extend, batch.view[:2], batch.proj[:2],
+        batch.planes[:2], batch.center[:2], batch.images[:2])
+    ref = fresh()
+    params, mask, loss = ref.params, None, 0.0
+    for v in range(2):
+        culled = render_preprocess(params, origin, extend, batch.planes[v],
+                                   batch.center[v], sh_degree, pp)
+        img = render(culled, batch.view[v], batch.proj[v], img_h, img_w,
+                     pp).img
+        loss = loss + losses.fused_l1_ssim_loss(img, batch.images[v],
+                                                op.lambda_dssim)
+        vis = cluster.scatter_chunk_mask(culled.chunk_ids,
+                                         culled.num_visible_chunks,
+                                         params.capacity // chunk)
+        mask = vis if mask is None else mask | vis
+    loss = loss / 2
+    loss.backward()
+    optimizer.sparse_adam_step(
+        params, {k: t.grad for k, t in params.fields().items()}, ref.adam,
+        optimizer.LearningRates.from_config(op, 1.0, 0), mask, chunk)
+    loss = float(loss.detach())
+    d_loss = abs(float(mb["loss"]) - loss)
+    rel = {}
+    for name, got, want in (
+            ("params", state_b.params.fields(), params.fields()),
+            ("exp_avg", state_b.adam.exp_avg, ref.adam.exp_avg),
+            ("exp_avg_sq", state_b.adam.exp_avg_sq, ref.adam.exp_avg_sq)):
+        for k in want:
+            a, w = got[k].detach(), want[k].detach()
+            rel[f"{name} {k}"] = float((a - w).abs().max()) / (
+                float(w.abs().max()) + 1e-30)
+    print(f"batched step B=2 against the mean of two single-view losses: "
+          f"loss {float(mb['loss']):.6f} (|diff| {d_loss:.3e}); max|diff| / "
+          f"max|ref| " + ", ".join(f"{k} {r:.2e}" for k, r in rel.items()))
+    for k, r in rel.items():
+        bar = 1e-5 if k.startswith("params") else BWD_TOL["grad"]
+        if not r <= bar:
+            fail(f"batched step: {k} differs by {r} of its largest, bar "
+                 f"{bar}")
+    if not d_loss <= 1e-6 * abs(loss):
+        fail(f"batched step: loss {float(mb['loss'])} against {loss}")
+    del state_b, ref, params
+
+    # ---- steps at B = 1, 2 and 4, in turns: ms per step and per view ----
+    per_b = {}
+    for b in (1, *BATCH_SIZES, *BATCH_SIZES[::-1], 1):
+        step = (make_train_step(lp, op, pp, caps, img_h, img_w, 1.0,
+                                sh_degree, False) if b == 1 else
+                make_batch_train_step(lp, op, pp, caps, img_h, img_w, 1.0,
+                                      sh_degree, b, False))
+        box = [fresh()]
+
+        def run(n_steps, times=None):
+            for s in range(n_steps):
+                ids = [(s * b + k) % n_views for k in range(b)]
+                args = [t[ids[0]] if b == 1 else t[ids[0]:ids[0] + b]
+                        for t in (batch.view, batch.proj, batch.planes,
+                                  batch.center, batch.images)]
+                marks = Marks()
+                marks.mark("start")
+                box[0], _, metrics = step(box[0], None, origin, extend,
+                                          *args)
+                marks.mark("step")
+                if times is not None:
+                    times.append(marks.split()[0][1])
+                if not bool(torch.isfinite(metrics["loss"])):
+                    fail(f"B={b}: non-finite loss")
+
+        times = []
+        zero_path_counts()
+        run(BATCH_STEPS, times)
+        counts += read_path_counts(f"batched steps B={b}", BATCH_STEPS, 0,
+                                   step_views=b)
+        wall, busy, kernels, _ = profile_steps(
+            lambda: run(BATCH_PROFILE_STEPS), BATCH_PROFILE_STEPS)
+        med = statistics.median(times[BATCH_WARMUP:])
+        per_b.setdefault(b, []).append(med)
+        print(f"batched steps B={b}: median {med:.3f} ms/step, "
+              f"{med / b:.3f} ms/view over {BATCH_STEPS - BATCH_WARMUP} steps "
+              f"(CUDA events); profiled {BATCH_PROFILE_STEPS} steps: wall "
+              f"{wall:.3f} ms/step, device busy {busy:.3f} ms/step "
+              f"({busy / b:.3f} ms/view, {100 * busy / wall:.1f}% of wall), "
+              f"{kernels:.0f} kernels and copies per step "
+              f"({kernels / b:.0f} per view)")
+        del box
+    print("batched steps: ms per view " + ", ".join(
+        f"B={b} " + " / ".join(f"{ms / b:.3f}" for ms in meds)
+        for b, meds in per_b.items())
+        + f"; phase 7 (less the command line) "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, worst
+
+
+def phase_batch_cli(dev, run_b1: dict):
+    """example_train --batch_views 2 on phase 6's COLMAP scene (8 train
+    frames, 4 groups per epoch), beside phase 6's B = 1 run; removes the
+    scene.  Returns the launches [forward, backward, window]."""
+    from litegs_torch import example_train
+    zero_path_counts()
+    t0 = time.perf_counter()
+    trainer, state, hist = example_train.main(
+        run_b1["argv"] + ["-m", os.path.join(COLMAP_DIR, "model_b2"),
+                          "--batch_views", "2"], device=dev)
+    wall = time.perf_counter() - t0
+    n_train = trainer.n_frames
+    steps = COLMAP_EPOCHS * n_train // 2
+    counts = np.asarray(read_path_counts("colmap run --batch_views 2", steps,
+                                         4, step_views=2))
+    epoch_s = [h["seconds"] for h in hist]
+    views = 2 * steps
+
+    def rates(secs):
+        # views/s over all epochs, and over epochs 1.. (the first warms up)
+        return (f"{views / sum(secs):.2f} views/s, "
+                f"{views * (len(secs) - 1) / len(secs) / sum(secs[1:]):.2f} "
+                "from epoch 1")
+
+    print(f"colmap run --batch_views 2: {wall:.1f} s wall; {steps} steps of "
+          f"2 views; per epoch {np.round(epoch_s, 3).tolist()} s; "
+          f"{steps / sum(epoch_s):.2f} it/s ({rates(epoch_s)}) over start's "
+          f"loop, against {rates(run_b1['epoch_s'])} at B=1 in phase 6 "
+          f"(epochs {np.round(run_b1['epoch_s'], 3).tolist()} s); active "
+          f"{[h['active'] for h in hist]}; test PSNR epoch 3 "
+          f"{hist[3]['test_psnr']:.3f}, epoch 7 {hist[7]['test_psnr']:.3f} "
+          f"(B=1: {run_b1['test_psnr'][0]:.3f}, {run_b1['test_psnr'][1]:.3f})")
+    if trainer.batch_views != 2 or state.step != steps:
+        fail(f"--batch_views 2 ran {state.step} steps at B="
+             f"{trainer.batch_views}")
+    if not (np.isfinite([h["loss"] for h in hist]).all()
+            and hist[-1]["psnr"] > hist[0]["psnr"] + 3.0):
+        fail("colmap run --batch_views 2: train PSNR did not rise by 3 dB")
+    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
+    return counts
 
 
 def main() -> int:
@@ -1651,16 +1977,23 @@ def main() -> int:
     print(f"training phase {time.perf_counter() - t0:.1f} s")
     phase_trainer(dev)
     t0 = time.perf_counter()
-    colmap = phase_colmap(dev, prepared, active)
+    colmap, run_b1 = phase_colmap(dev, prepared, active)
     phase_pose_step(dev)
     print(f"colmap phase {time.perf_counter() - t0:.1f} s; launches on its "
           f"path {colmap}")
-    fwd_launches += colmap["raster_forward"]
-    bwd["launches"] += colmap["raster_backward"]
-    win_training += colmap["expand_window_kernel"]
+    t0 = time.perf_counter()
+    batched, worst_batched = phase_batched(dev, prepared, active, batch,
+                                           SH_DEGREE)
+    batched += phase_batch_cli(dev, run_b1)
+    print(f"batched phase {time.perf_counter() - t0:.1f} s; launches on its "
+          f"path {batched.tolist()}")
+    fwd_launches += colmap["raster_forward"] + int(batched[0])
+    bwd["launches"] += colmap["raster_backward"] + int(batched[1])
+    win_training += colmap["expand_window_kernel"] + int(batched[2])
     fwd["launches"] = fwd_launches
+    # the merged forward is bit-equal to the single views' (checked)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], worst_fwd)
-    bwd["max_abs_err"] = max(bwd["max_abs_err"], worst_bwd)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], worst_bwd, worst_batched)
     # launches: expand_window_kernel on the serving and training paths (the
     # default route); the other three in the streaming-route phases, whose
     # tables and aligned copies are this slice's own path

@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(1024 / kPPT) raster_bwd_kernel(
     const float* __restrict__ d_color,    // [T, C, P] cotangent
     const float* __restrict__ d_trans,    // [T, P]    cotangent
     float* __restrict__ grads,            // [M, KP] zero-initialised
-    int m, int tiles_x, int tile_h, int tile_w, int ww) {
+    int m, int tiles_x, int tiles_y, int tile_h, int tile_w, int ww) {
   using L = Layout<C, STATS>;
   constexpr int K = L::K;
   constexpr int KP = L::KP;
@@ -139,7 +139,10 @@ __global__ void __launch_bounds__(1024 / kPPT) raster_bwd_kernel(
   const int npix = tile_h * tile_w;
   const PixelMap<kPPT> map(tile_h, tile_w, ww, warp, lane);
   const float tx0 = static_cast<float>((tile % tiles_x) * tile_w);
-  const float ty0 = static_cast<float>((tile / tiles_x) * tile_h);
+  // tiles_y > 0: a merged grid of several views, whose tile row wraps
+  // modulo each view's tiles_y
+  const int trow = tiles_y > 0 ? (tile / tiles_x) % tiles_y : tile / tiles_x;
+  const float ty0 = static_cast<float>(trow * tile_h);
   const float px = tx0 + static_cast<float>(map.lx);
   const int start = tile_start[tile];
   const int count = tile_count[tile];
@@ -272,7 +275,8 @@ int launch(const void* mean_pix, const void* inv_cov, const void* color,
            const void* tile_start, const void* tile_count,
            const void* out_color, const void* out_trans, const void* d_color,
            const void* d_trans, void* grads, int m, int tiles_total,
-           int tiles_x, int tile_h, int tile_w, int ww, cudaStream_t s) {
+           int tiles_x, int tiles_y, int tile_h, int tile_w, int ww,
+           cudaStream_t s) {
   raster_bwd_kernel<C, STATS>
       <<<tiles_total, tile_h * tile_w / kPPT, 0, s>>>(
           static_cast<const float*>(mean_pix),
@@ -286,21 +290,22 @@ int launch(const void* mean_pix, const void* inv_cov, const void* color,
           static_cast<const float*>(out_trans),
           static_cast<const float*>(d_color),
           static_cast<const float*>(d_trans), static_cast<float*>(grads), m,
-          tiles_x, tile_h, tile_w, ww);
+          tiles_x, tiles_y, tile_h, tile_w, ww);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // grads: a zero-initialised point-major [M, KP] array, KP =
-// litegs_raster_backward_row(channels, with_stats).
+// litegs_raster_backward_row(channels, with_stats).  tiles_y as in
+// litegs_raster_forward.
 extern "C" int litegs_raster_backward(
     const void* mean_pix, const void* inv_cov, const void* color,
     const void* opacity, const void* sorted_point, const void* tile_start,
     const void* tile_count, const void* out_color, const void* out_trans,
     const void* d_color, const void* d_trans, void* grads, int m,
-    int channels, int with_stats, int tiles_total, int tiles_x, int tile_h,
-    int tile_w, void* stream) {
+    int channels, int with_stats, int tiles_total, int tiles_x, int tiles_y,
+    int tile_h, int tile_w, void* stream) {
   const int ww = litegs::warp_block_width(tile_h, tile_w, kPPT);
   if (ww == 0 || (channels != 3 && channels != 4))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -310,7 +315,7 @@ extern "C" int litegs_raster_backward(
   return launch<CH, ST>(mean_pix, inv_cov, color, opacity, sorted_point,     \
                         tile_start, tile_count, out_color, out_trans,        \
                         d_color, d_trans, grads, m, tiles_total, tiles_x,    \
-                        tile_h, tile_w, ww, s)
+                        tiles_y, tile_h, tile_w, ww, s)
   if (channels == 3) {
     if (with_stats) LITEGS_LAUNCH(3, true);
     LITEGS_LAUNCH(3, false);

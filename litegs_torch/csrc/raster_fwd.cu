@@ -62,7 +62,7 @@ __global__ void __launch_bounds__(1024) raster_fwd_kernel(
     int* __restrict__ walked,             // [T, P] or nullptr
     int* __restrict__ evaluated,          // [T, P] or nullptr
     int* __restrict__ contributing,       // [T, P] or nullptr
-    int m, int tiles_x, int tile_h, int tile_w, int ww) {
+    int m, int tiles_x, int tiles_y, int tile_h, int tile_w, int ww) {
   __shared__ Batch<C, kBatch> s;
   const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
@@ -72,7 +72,10 @@ __global__ void __launch_bounds__(1024) raster_fwd_kernel(
   const int npix = tile_h * tile_w;
   const PixelMap<kPPT> map(tile_h, tile_w, ww, warp, lane);
   const float tx0 = static_cast<float>((tile % tiles_x) * tile_w);
-  const float ty0 = static_cast<float>((tile / tiles_x) * tile_h);
+  // tiles_y > 0: a merged grid of several views, whose tile row wraps
+  // modulo each view's tiles_y
+  const int trow = tiles_y > 0 ? (tile / tiles_x) % tiles_y : tile / tiles_x;
+  const float ty0 = static_cast<float>(trow * tile_h);
   const float px = tx0 + static_cast<float>(map.lx);
   const float py = ty0 + static_cast<float>(map.row(0));
   const int start = tile_start[tile];
@@ -147,7 +150,7 @@ int launch(const void* mean_pix, const void* inv_cov, const void* color,
            const void* tile_start, const void* tile_count, void* out_color,
            void* out_trans, void* walked, void* evaluated,
            void* contributing, int m, int tiles_total, int tiles_x,
-           int tile_h, int tile_w, int ww, cudaStream_t s) {
+           int tiles_y, int tile_h, int tile_w, int ww, cudaStream_t s) {
   raster_fwd_kernel<C, COUNT><<<tiles_total, tile_h * tile_w / kPPT, 0, s>>>(
           static_cast<const float*>(mean_pix),
           static_cast<const float*>(inv_cov),
@@ -158,19 +161,23 @@ int launch(const void* mean_pix, const void* inv_cov, const void* color,
           static_cast<const int*>(tile_count),
           static_cast<float*>(out_color), static_cast<float*>(out_trans),
           static_cast<int*>(walked), static_cast<int*>(evaluated),
-          static_cast<int*>(contributing), m, tiles_x, tile_h, tile_w, ww);
+          static_cast<int*>(contributing), m, tiles_x, tiles_y, tile_h,
+          tile_w, ww);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// walked, evaluated, contributing: each [T, P] int32 or null.
+// walked, evaluated, contributing: each [T, P] int32 or null.  tiles_y:
+// the tile rows of one view on a merged grid of several views (the tile
+// row wraps modulo it), 0 for one view.
 extern "C" int litegs_raster_forward(
     const void* mean_pix, const void* inv_cov, const void* color,
     const void* opacity, const void* sorted_point, const void* tile_start,
     const void* tile_count, void* out_color, void* out_trans, void* walked,
     void* evaluated, void* contributing, int m, int channels,
-    int tiles_total, int tiles_x, int tile_h, int tile_w, void* stream) {
+    int tiles_total, int tiles_x, int tiles_y, int tile_h, int tile_w,
+    void* stream) {
   const int ww = litegs::warp_block_width(tile_h, tile_w, kPPT);
   if (ww == 0 || (channels != 3 && channels != 4))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -180,7 +187,7 @@ extern "C" int litegs_raster_forward(
   return launch<CH, CNT>(mean_pix, inv_cov, color, opacity, sorted_point,   \
                          tile_start, tile_count, out_color, out_trans,      \
                          walked, evaluated, contributing, m, tiles_total,   \
-                         tiles_x, tile_h, tile_w, ww, s)
+                         tiles_x, tiles_y, tile_h, tile_w, ww, s)
   const bool count = walked != nullptr || evaluated != nullptr ||
                      contributing != nullptr;
   if (channels == 3) {

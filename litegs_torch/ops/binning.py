@@ -376,3 +376,38 @@ def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
         primitive_visible=point_counts > 0,
         point_counts=point_counts.to(torch.int32),
         overflow=False)
+
+
+def concat_tables(tables, tiles_total: int) -> BinningResult:
+    """Merge B per-view tables into ONE table over a B * T tile grid
+    (``litegs_tpu/ops/binning.py::concat_tables``).
+
+    View v's tiles move to [v T, (v + 1) T); its point ids move past the
+    points of the views before it and its entries past their entries.
+    The tables here are exact (no pads), so the offsets are cumulative --
+    point ids by the sum of the earlier views' M_u (each view's M is the
+    length of its ``primitive_visible``), ``tile_start`` by the sum of
+    their E_u -- where JAX's padded buffers shift by fixed v m and v E_len.
+    The result is one table for ONE rasterize() call over B * T tiles
+    with ``tiles_y`` set to a view's tile rows: per-tile depth order is
+    untouched, and the per-point outputs over the concatenated [sum M_v]
+    points split back into views at the same offsets.
+    """
+    point_off = entry_off = 0
+    sp, st, ts = [], [], []
+    for v, t in enumerate(tables):
+        sp.append(t.sorted_point + point_off)
+        st.append(t.sorted_tile + v * tiles_total)
+        ts.append(t.tile_start + entry_off)
+        point_off += t.primitive_visible.shape[0]
+        entry_off += t.num_entries
+    return BinningResult(
+        sorted_point=torch.cat(sp), sorted_tile=torch.cat(st),
+        entry_valid=torch.cat([t.entry_valid for t in tables]),
+        tile_start=torch.cat(ts),
+        tile_count=torch.cat([t.tile_count for t in tables]),
+        num_entries=entry_off,
+        num_rows=sum(t.num_rows for t in tables),
+        primitive_visible=torch.cat([t.primitive_visible for t in tables]),
+        point_counts=torch.cat([t.point_counts for t in tables]),
+        overflow=False)

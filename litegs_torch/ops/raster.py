@@ -41,11 +41,13 @@ def zero_stats_sink(m: int, device="cuda") -> RasterStats:
 
 
 def _grad_norm(d_mean, tiles_total: int, tiles_x: int, tile_h: int,
-               tile_w: int, img_h: int, img_w: int):
+               tile_w: int, img_h: int, img_w: int, tiles_y: int = 0):
     """||d mean||_ndc: pixel gradients scaled to NDC units
-    (ndc_to_pixel: px = (x * .5 + .5) * W)."""
+    (ndc_to_pixel: px = (x * .5 + .5) * W).  Without img_h the height is
+    one view's tile rows: ``tiles_y`` on a merged grid of several views."""
     sx = 0.5 * (img_w if img_w else tiles_x * tile_w)
-    sy = 0.5 * (img_h if img_h else (tiles_total // tiles_x) * tile_h)
+    sy = 0.5 * (img_h if img_h else
+                (tiles_y or tiles_total // tiles_x) * tile_h)
     return torch.sqrt((d_mean[0] * sx) ** 2 + (d_mean[1] * sy) ** 2)
 
 
@@ -68,7 +70,8 @@ class _Rasterize(torch.autograd.Function):
                      for t in (mean_pix, inv_cov, color, opacity))
         tab = (table.sorted_point, table.tile_start, table.tile_count)
         tiles_color, tiles_trans = raster_cuda.raster_forward(
-            *args, *tab, tiles_x, tile_h, tile_w, table_checked=True)
+            *args, *tab, tiles_x, tile_h, tile_w, table_checked=True,
+            tiles_y=geom[6])
         ctx.save_for_backward(*args, tiles_color, tiles_trans)
         ctx.tab, ctx.geom, ctx.with_stats = tab, geom, bool(sink)
         return tiles_color, tiles_trans
@@ -81,7 +84,7 @@ class _Rasterize(torch.autograd.Function):
             *args, *ctx.tab, tiles_x, tile_h, tile_w, tiles_color,
             tiles_trans, d_tiles_color.contiguous(),
             d_tiles_trans.contiguous(), with_stats=ctx.with_stats,
-            table_checked=True)
+            table_checked=True, tiles_y=ctx.geom[6])
         grads = (None, None, g.d_mean, g.d_inv_cov, g.d_color, g.d_opacity)
         if ctx.with_stats:
             grads += tuple(_stats_from(g, ctx.geom))
@@ -92,7 +95,7 @@ def rasterize(mean_pix, inv_cov, color, opacity, table: BinningResult,
               tiles_total: int, tiles_x: int, tile_h: int, tile_w: int,
               backend: str = "cuda",
               stats_sink: Optional[RasterStats] = None,
-              img_h: int = 0, img_w: int = 0):
+              img_h: int = 0, img_w: int = 0, tiles_y: int = 0):
     """Rasterize gaussians into tile-layout images (differentiable).
 
     Args:
@@ -109,6 +112,10 @@ def rasterize(mean_pix, inv_cov, color, opacity, table: BinningResult,
         gradients.
       img_h/img_w: image size for the NDC ``grad_norm`` scale (defaults to
         the tile grid's extent).
+      tiles_y: 0 for one view; on a merged grid of B views (``tiles_total``
+        = B * tiles_x * tiles_y, ``binning.concat_tables``) each view's
+        tile rows, modulo which the tile row wraps
+        (``litegs_tpu/ops/raster.py:145``).
     Returns:
       (tiles_color [T, C, P], tiles_trans [T, P], None).  Tiles without
       entries come out with colour 0 and transmittance 1.
@@ -122,13 +129,13 @@ def rasterize(mean_pix, inv_cov, color, opacity, table: BinningResult,
         out = raster_plain.rasterize_reference(
             mean_pix, inv_cov, color, opacity, table.sorted_point,
             table.sorted_tile, table.entry_valid, table.tile_start,
-            tiles_total, tiles_x, tile_h, tile_w)
+            tiles_total, tiles_x, tile_h, tile_w, tiles_y)
         return out.tiles_color, out.tiles_trans, None
     raster_cuda.check_table(table.sorted_point, table.tile_start,
                             table.tile_count, color.shape[1])
     sink = () if stats_sink is None else tuple(stats_sink)
     tiles_color, tiles_trans = _Rasterize.apply(
-        table, (tiles_total, tiles_x, tile_h, tile_w, img_h, img_w),
+        table, (tiles_total, tiles_x, tile_h, tile_w, img_h, img_w, tiles_y),
         mean_pix, inv_cov, color, opacity, *sink)
     return tiles_color, tiles_trans, None
 
@@ -137,7 +144,7 @@ def raster_stats(mean_pix, inv_cov, color, opacity, table: BinningResult,
                  out_tiles_color, out_tiles_trans, d_tiles_color,
                  d_tiles_trans, tiles_total: int, tiles_x: int,
                  tile_h: int, tile_w: int, img_h: int = 0, img_w: int = 0,
-                 backend: str = "cuda") -> RasterStats:
+                 backend: str = "cuda", tiles_y: int = 0) -> RasterStats:
     """Per-point densification statistics from a loss cotangent: the
     explicit pass (``litegs_tpu/ops/raster.py::raster_stats``).
 
@@ -152,6 +159,7 @@ def raster_stats(mean_pix, inv_cov, color, opacity, table: BinningResult,
         out_tiles_color, out_tiles_trans, d_tiles_color, d_tiles_trans)]
     fn = (raster_cuda.raster_backward if backend == "cuda"
           else raster_cuda.raster_backward_plain)
-    g = fn(*args, *tab, tiles_x, tile_h, tile_w, *outs, with_stats=True)
+    g = fn(*args, *tab, tiles_x, tile_h, tile_w, *outs, with_stats=True,
+           tiles_y=tiles_y)
     return _stats_from(g, (tiles_total, tiles_x, tile_h, tile_w, img_h,
-                           img_w))
+                           img_w, tiles_y))

@@ -59,7 +59,7 @@ LAUNCHES_BWD = 0
 def _lib() -> ctypes.CDLL:
     lib = _kernels.library("raster_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.litegs_raster_forward.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.litegs_raster_forward.argtypes = [p] * 12 + [i] * 7 + [p]
     lib.litegs_raster_forward.restype = i
     lib.litegs_raster_forward_takes.argtypes = [i, i]
     lib.litegs_raster_forward_takes.restype = i
@@ -72,7 +72,7 @@ def _lib() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = _kernels.library("raster_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.litegs_raster_backward.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.litegs_raster_backward.argtypes = [p] * 12 + [i] * 8 + [p]
     lib.litegs_raster_backward.restype = i
     for fn in (lib.litegs_raster_backward_row,
                lib.litegs_raster_backward_takes):
@@ -152,9 +152,11 @@ def warp_block_visible(mean_pix, inv_cov, opacity, x0, y0, x1, y1):
 
 def _check_launch(mean_pix, inv_cov, color, opacity, sorted_point,
                   tile_start, tile_count, tiles_x: int, tile_h: int,
-                  tile_w: int):
+                  tile_w: int, tiles_y: int = 0):
     """The per-launch checks both kernels share: dtype, shape, device,
-    contiguity and the tile geometry.  Returns (device, C, M, T, P)."""
+    contiguity and the tile geometry (a merged grid, ``tiles_y > 0``, holds
+    whole views of ``tiles_x * tiles_y`` tiles).  Returns (device, C, M, T,
+    P)."""
     if mean_pix.device.type != "cuda":
         raise ValueError(f"unsupported device {mean_pix.device}")
     dev = mean_pix.device
@@ -166,9 +168,13 @@ def _check_launch(mean_pix, inv_cov, color, opacity, sorted_point,
                          "or 4")
     if not 0 < npix <= 1024:
         raise ValueError(f"tile {tile_h}x{tile_w} exceeds 1024 pixels")
-    if tiles_total % tiles_x:
+    if tiles_y < 0:
+        raise ValueError(f"tiles_y={tiles_y} is negative")
+    view_tiles = tiles_x * tiles_y if tiles_y else tiles_x
+    if view_tiles <= 0 or tiles_total % view_tiles:
         raise ValueError(f"{tiles_total} tiles is not a multiple of "
-                         f"tiles_x={tiles_x}")
+                         f"tiles_x={tiles_x}"
+                         + (f" * tiles_y={tiles_y}" if tiles_y else ""))
     f32, i32 = torch.float32, torch.int32
     _check("mean_pix", mean_pix, f32, (2, m), dev)
     _check("inv_cov", inv_cov, f32, (3, m), dev)
@@ -192,7 +198,8 @@ def _check_tile(takes, tile_h: int, tile_w: int):
 def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
                    tile_start, tile_count, tiles_x: int, tile_h: int,
                    tile_w: int, walked=None, evaluated=None,
-                   contributing=None, table_checked: bool = False):
+                   contributing=None, table_checked: bool = False,
+                   tiles_y: int = 0):
     """Blend each tile's entries; tile layout out.
 
     Args:
@@ -207,6 +214,9 @@ def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
         the pairs among them that the cull did not skip; contributing the
         pairs among them with alpha >= 1/256, which the blend takes.
       table_checked: the caller has run :func:`check_table` on this table.
+      tiles_y: 0 for one view; on a merged grid of several views (view v's
+        tiles at [v T, (v + 1) T), ``binning.concat_tables``) each view's
+        tile rows, modulo which the tile row wraps.
     Returns (tiles_color [T, C, P], tiles_trans [T, P]); a tile with no
     entries comes out with colour 0 and transmittance 1.
     """
@@ -216,11 +226,12 @@ def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
                              "produced by the CUDA kernel")
         return raster_forward_plain(mean_pix, inv_cov, color, opacity,
                                     sorted_point, tile_start, tile_count,
-                                    tiles_x, tile_h, tile_w)
+                                    tiles_x, tile_h, tile_w,
+                                    tiles_y=tiles_y)
     global LAUNCHES
     dev, nchan, m, tiles_total, npix = _check_launch(
         mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
-        tile_count, tiles_x, tile_h, tile_w)
+        tile_count, tiles_x, tile_h, tile_w, tiles_y)
     lib = _lib()
     _check_tile(lib.litegs_raster_forward_takes, tile_h, tile_w)
     if not table_checked:
@@ -239,7 +250,7 @@ def raster_forward(mean_pix, inv_cov, color, opacity, sorted_point,
         opacity.data_ptr(), sorted_point.data_ptr(), tile_start.data_ptr(),
         tile_count.data_ptr(), out_color.data_ptr(), out_trans.data_ptr(),
         *(None if t is None else t.data_ptr() for t in counts.values()),
-        m, nchan, tiles_total, tiles_x, tile_h, tile_w,
+        m, nchan, tiles_total, tiles_x, tiles_y, tile_h, tile_w,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("raster forward kernel launch failed: "
@@ -252,7 +263,8 @@ def raster_backward(mean_pix, inv_cov, color, opacity, sorted_point,
                     tile_start, tile_count, tiles_x: int, tile_h: int,
                     tile_w: int, tiles_color, tiles_trans, d_tiles_color,
                     d_tiles_trans, with_stats: bool = False,
-                    table_checked: bool = False) -> PointGrads:
+                    table_checked: bool = False,
+                    tiles_y: int = 0) -> PointGrads:
     """Per-point gradients of :func:`raster_forward`, and optionally its
     fragment statistics.
 
@@ -260,18 +272,20 @@ def raster_backward(mean_pix, inv_cov, color, opacity, sorted_point,
       the forward's inputs and table, as :func:`raster_forward` takes them;
       tiles_color [T, C, P], tiles_trans [T, P]: the forward's outputs;
       d_tiles_color [T, C, P], d_tiles_trans [T, P]: their cotangents;
-      with_stats: also return weight_sum, frag_count and err_square_sum.
+      with_stats: also return weight_sum, frag_count and err_square_sum;
+      tiles_y: as :func:`raster_forward` takes it.
     Returns raster_plain.PointGrads.
     """
     if mean_pix.device.type == "cpu":
         return raster_backward_plain(
             mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
             tile_count, tiles_x, tile_h, tile_w, tiles_color, tiles_trans,
-            d_tiles_color, d_tiles_trans, with_stats=with_stats)
+            d_tiles_color, d_tiles_trans, with_stats=with_stats,
+            tiles_y=tiles_y)
     global LAUNCHES_BWD
     dev, nchan, m, tiles_total, npix = _check_launch(
         mean_pix, inv_cov, color, opacity, sorted_point, tile_start,
-        tile_count, tiles_x, tile_h, tile_w)
+        tile_count, tiles_x, tile_h, tile_w, tiles_y)
     lib = _lib_bwd()
     _check_tile(lib.litegs_raster_backward_takes, tile_h, tile_w)
     if not table_checked:
@@ -293,8 +307,8 @@ def raster_backward(mean_pix, inv_cov, color, opacity, sorted_point,
         tile_count.data_ptr(), tiles_color.data_ptr(), tiles_trans.data_ptr(),
         d_tiles_color.data_ptr(), d_tiles_trans.data_ptr(),
         point_major.data_ptr(),
-        m, nchan, int(with_stats), tiles_total, tiles_x, tile_h, tile_w,
-        torch.cuda.current_stream(dev).cuda_stream)
+        m, nchan, int(with_stats), tiles_total, tiles_x, tiles_y, tile_h,
+        tile_w, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("raster backward kernel launch failed: "
                            + lib.litegs_error_string(rc).decode())
@@ -309,48 +323,64 @@ def raster_backward(mean_pix, inv_cov, color, opacity, sorted_point,
     return out
 
 
-def _tile_groups(tile_start, tile_count, max_entries: int):
+def _tile_groups(tile_start, tile_count, max_entries: int,
+                 view_tiles: int = 0):
     """Split the non-empty tiles into groups of at most ``max_entries``
     entries (a single tile may exceed it).  Yields, per group, (tiles,
     entries, sub_tile, sub_start): the group's tile ids, the table slots of
     its entries in order, each entry's tile, and each tile's start in the
-    group's sub-table (a [T] vector)."""
+    group's sub-table (a [T] vector).
+
+    ``view_tiles`` > 0: the grid is a merged grid of views of that many
+    tiles each, and no group straddles two views, so each view is split
+    and computed exactly as it is alone."""
     dev = tile_start.device
     tiles_total = tile_start.shape[0]
     counts = tile_count.long()
     starts = tile_start.long()
     nonempty = torch.nonzero(counts > 0).flatten()
-    if nonempty.numel() == 0:
-        return
-    cum = torch.cumsum(counts[nonempty], 0).cpu()
-    cuts = [0]
-    while cuts[-1] < len(cum):
-        done = int(cum[cuts[-1] - 1]) if cuts[-1] else 0
-        nxt = int(torch.searchsorted(cum, done + max_entries, right=True))
-        cuts.append(max(nxt, cuts[-1] + 1))
-    for lo, hi in zip(cuts[:-1], cuts[1:]):
-        tiles = nonempty[lo:hi]
-        cnt = counts[tiles]
-        seg_start = torch.cumsum(cnt, 0) - cnt
-        n = int(cnt.sum())
-        rank = torch.arange(n, device=dev) - torch.repeat_interleave(
-            seg_start, cnt)
-        sub_tile = torch.repeat_interleave(tiles, cnt)
-        entries = torch.repeat_interleave(starts[tiles], cnt) + rank
-        sub_start = torch.zeros(tiles_total, dtype=torch.long, device=dev)
-        sub_start[tiles] = seg_start
-        yield tiles, entries, sub_tile, sub_start
+    bounds = [0, nonempty.numel()]
+    if view_tiles:
+        edges = torch.arange(view_tiles, tiles_total, view_tiles, device=dev)
+        bounds[1:1] = torch.searchsorted(nonempty, edges).tolist()
+    for first, end in zip(bounds[:-1], bounds[1:]):
+        view = nonempty[first:end]
+        if view.numel() == 0:
+            continue
+        cum = torch.cumsum(counts[view], 0).cpu()
+        cuts = [0]
+        while cuts[-1] < len(cum):
+            done = int(cum[cuts[-1] - 1]) if cuts[-1] else 0
+            nxt = int(torch.searchsorted(cum, done + max_entries,
+                                         right=True))
+            cuts.append(max(nxt, cuts[-1] + 1))
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            tiles = view[lo:hi]
+            cnt = counts[tiles]
+            seg_start = torch.cumsum(cnt, 0) - cnt
+            n = int(cnt.sum())
+            rank = torch.arange(n, device=dev) - torch.repeat_interleave(
+                seg_start, cnt)
+            sub_tile = torch.repeat_interleave(tiles, cnt)
+            entries = torch.repeat_interleave(starts[tiles], cnt) + rank
+            sub_start = torch.zeros(tiles_total, dtype=torch.long,
+                                    device=dev)
+            sub_start[tiles] = seg_start
+            yield tiles, entries, sub_tile, sub_start
 
 
 def raster_forward_plain(mean_pix, inv_cov, color, opacity, sorted_point,
                          tile_start, tile_count, tiles_x: int, tile_h: int,
-                         tile_w: int, max_entries: int = 1 << 20):
+                         tile_w: int, max_entries: int = 1 << 20,
+                         tiles_y: int = 0):
     """The plain PyTorch version of :func:`raster_forward`.
 
     Takes the same table (tiles may own any runs of ``sorted_point``) and
     calls ``raster_plain.rasterize_reference`` without autograd, on groups
     of whole tiles of at most ``max_entries`` entries each so that its
-    [E, P] intermediates stay bounded.
+    [E, P] intermediates stay bounded.  On a merged grid (``tiles_y`` > 0)
+    the groups stay within one view, so each view comes out bit for bit
+    as it does alone, as the kernel's blocks compute each tile alone.
     """
     dev = mean_pix.device
     tiles_total = tile_start.shape[0]
@@ -362,12 +392,12 @@ def raster_forward_plain(mean_pix, inv_cov, color, opacity, sorted_point,
                              device=dev)
     with torch.no_grad():
         for tiles, entries, sub_tile, sub_start in _tile_groups(
-                tile_start, tile_count, max_entries):
+                tile_start, tile_count, max_entries, tiles_x * tiles_y):
             out = rasterize_reference(
                 mean_pix, inv_cov, color, opacity, sorted_point[entries],
                 sub_tile, torch.ones(len(entries), dtype=torch.bool,
                                      device=dev),
-                sub_start, tiles_total, tiles_x, tile_h, tile_w)
+                sub_start, tiles_total, tiles_x, tile_h, tile_w, tiles_y)
             tiles_color[tiles] = out.tiles_color[tiles]
             tiles_trans[tiles] = out.tiles_trans[tiles]
     return tiles_color, tiles_trans
@@ -378,11 +408,13 @@ def raster_backward_plain(mean_pix, inv_cov, color, opacity, sorted_point,
                           tile_w: int, tiles_color, tiles_trans,
                           d_tiles_color, d_tiles_trans,
                           with_stats: bool = False,
-                          max_entries: int = 1 << 18) -> PointGrads:
+                          max_entries: int = 1 << 18,
+                          tiles_y: int = 0) -> PointGrads:
     """The plain PyTorch version of :func:`raster_backward`.
 
     Calls ``raster_plain.raster_backward_reference`` on groups of whole
-    tiles of at most ``max_entries`` entries each and sums the per-point
+    tiles of at most ``max_entries`` entries each (within one view on a
+    merged grid, as :func:`raster_forward_plain`) and sums the per-point
     results over the groups.
     """
     dev = mean_pix.device
@@ -391,13 +423,13 @@ def raster_backward_plain(mean_pix, inv_cov, color, opacity, sorted_point,
     total = PointGrads(z((2, m)), z((3, m)), z((nchan, m)), z(m),
                        *((z(m), z(m), z(m)) if with_stats else ()))
     for _, entries, sub_tile, sub_start in _tile_groups(
-            tile_start, tile_count, max_entries):
+            tile_start, tile_count, max_entries, tiles_x * tiles_y):
         part = raster_backward_reference(
             mean_pix, inv_cov, color, opacity, sorted_point[entries],
             sub_tile, torch.ones(len(entries), dtype=torch.bool, device=dev),
             sub_start, tile_start.shape[0], tiles_x, tile_h, tile_w,
             tiles_color, tiles_trans, d_tiles_color, d_tiles_trans,
-            with_stats=with_stats)
+            with_stats=with_stats, tiles_y=tiles_y)
         for acc, add in zip(total, part):
             if acc is not None:
                 acc += add

@@ -61,15 +61,20 @@ class PointGrads(NamedTuple):
     err_square_sum: Optional[torch.Tensor] = None  # [M] sum (dpw / o)^2
 
 
-def tile_pixel_coords(tiles_x: int, tile_h: int, tile_w: int, tile_ids):
+def tile_pixel_coords(tiles_x: int, tile_h: int, tile_w: int, tile_ids,
+                      tiles_y: int = 0):
     """Pixel coords of each tile's pixels, row-major within the tile.
 
-    Returns (x [E, P], y [E, P]) as float32.
+    ``tiles_y > 0``: the tile row wraps modulo ``tiles_y``, so a merged
+    grid of B views (view v's tiles at [v T, (v + 1) T),
+    ``binning.concat_tables``) places each view's tiles on its own image;
+    0 is the single-view grid.  Returns (x [E, P], y [E, P]) as float32.
     """
     p = torch.arange(tile_h * tile_w, device=tile_ids.device)
     in_y = (p // tile_w)[None, :]
     in_x = (p % tile_w)[None, :]
-    ty = (tile_ids // tiles_x)[:, None]
+    row = tile_ids // tiles_x
+    ty = (row % tiles_y if tiles_y > 0 else row)[:, None]
     tx = (tile_ids % tiles_x)[:, None]
     return ((tx * tile_w + in_x).float(), (ty * tile_h + in_y).float())
 
@@ -107,7 +112,8 @@ def _segmented_exclusive_cumsum(x, seg_start_per_entry):
 def rasterize_reference(mean_pix, inv_cov, color, opacity,
                         sorted_point, sorted_tile, entry_valid, tile_start,
                         tiles_total: int, tiles_x: int,
-                        tile_h: int, tile_w: int) -> RasterOutput:
+                        tile_h: int, tile_w: int,
+                        tiles_y: int = 0) -> RasterOutput:
     """Rasterize into tile-layout images.
 
     Args:
@@ -118,6 +124,8 @@ def rasterize_reference(mean_pix, inv_cov, color, opacity,
       sorted_point/sorted_tile/entry_valid/tile_start: a binning table
         whose tiles own contiguous entry runs (ops/binning.py, or the JAX
         package's padded table); sorted_tile == tiles_total marks padding.
+      tiles_y: tile rows per view on a merged grid of several views (the
+        tile row wraps modulo it); 0 for one view.
     Returns RasterOutput (tile layout; utils.math.tiles_to_img converts).
     """
     global CALLS
@@ -125,7 +133,8 @@ def rasterize_reference(mean_pix, inv_cov, color, opacity,
     nchan, m = color.shape
     sp = sorted_point.long()
     safe_tile = torch.clamp(sorted_tile.long(), max=tiles_total - 1)
-    pix_x, pix_y = tile_pixel_coords(tiles_x, tile_h, tile_w, safe_tile)
+    pix_x, pix_y = tile_pixel_coords(tiles_x, tile_h, tile_w, safe_tile,
+                                     tiles_y)
 
     alpha_raw = pair_alpha(mean_pix, inv_cov, opacity, sp, pix_x,
                            pix_y)[-1]
@@ -176,7 +185,8 @@ def raster_backward_reference(mean_pix, inv_cov, color, opacity,
                               tile_start, tiles_total: int, tiles_x: int,
                               tile_h: int, tile_w: int, tiles_color,
                               tiles_trans, d_tiles_color, d_tiles_trans,
-                              with_stats: bool = False) -> PointGrads:
+                              with_stats: bool = False,
+                              tiles_y: int = 0) -> PointGrads:
     """Analytic backward of :func:`rasterize_reference`, per point.
 
     Takes the forward's inputs and table, its outputs (``tiles_color``
@@ -195,14 +205,16 @@ def raster_backward_reference(mean_pix, inv_cov, color, opacity,
     d_opacity = dpw / o.  With ``with_stats`` it also returns each point's
     blend-weight sum, its number of contributing (entry, pixel) pairs and
     its sum over pairs of (dpw / o)^2 -- the fragment statistics of
-    ``litegs_tpu/ops/raster.py::raster_stats``.
+    ``litegs_tpu/ops/raster.py::raster_stats``.  ``tiles_y`` as in
+    :func:`rasterize_reference`.
     """
     global BACKWARD_CALLS
     BACKWARD_CALLS += 1
     m = color.shape[1]
     sp = sorted_point.long()
     safe_tile = torch.clamp(sorted_tile.long(), max=tiles_total - 1)
-    pix_x, pix_y = tile_pixel_coords(tiles_x, tile_h, tile_w, safe_tile)
+    pix_x, pix_y = tile_pixel_coords(tiles_x, tile_h, tile_w, safe_tile,
+                                     tiles_y)
 
     dx, dy, a, b, c, alpha_raw = pair_alpha(mean_pix, inv_cov, opacity, sp,
                                             pix_x, pix_y)

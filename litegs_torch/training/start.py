@@ -7,7 +7,9 @@ device_preload, data.py:178-190), build the Trainer, run the epoch loop
 with the reference's hooks (test PSNR at ``test_epochs``, ply export at
 ``save_epochs`` + finish, checkpoint at ``checkpoint_epochs``, resume from
 ``start_checkpoint``) and, with pose refinement, write the refined
-extrinsics to ``viewproj.npz``.
+extrinsics to ``viewproj.npz``.  ``pp.batch_views`` reaches the Trainer,
+whose epochs then take B views per optimizer step; epochs, history and
+the iteration counts printed here count views, as at B = 1.
 """
 from __future__ import annotations
 

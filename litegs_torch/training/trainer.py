@@ -3,8 +3,10 @@
 The port of ``litegs_tpu/training/trainer.py`` (reference
 litegs/training/trainer.py:26-227).  One step runs render_preprocess ->
 render (autograd through the raster kernels) -> fused L1+SSIM loss ->
-backward -> sparse chunk Adam; densification and the Morton resort run at
-epoch boundaries on the reference's schedule.
+backward -> sparse chunk Adam; with ``pp.batch_views`` = B > 1 a step
+takes B views through one raster launch (make_batch_train_step).
+Densification and the Morton resort run at epoch boundaries on the
+reference's schedule.
 
 The port sizes its buffers exactly from the data: render_preprocess keeps
 exactly the visible chunks and binning emits exactly the view's entries, so
@@ -30,7 +32,7 @@ from .. import config as cfg
 from ..ops import losses
 from ..ops import pose as pose_ops
 from ..ops import raster as raster_ops
-from ..render import render, render_preprocess
+from ..render import render, render_batch, render_preprocess
 from ..scene import cluster
 from ..scene.gaussians import (GaussianModel, create_gaussians, pad_params,
                                pad_to_chunk)
@@ -69,6 +71,36 @@ def masked_chunk_aabb(params: GaussianModel, active_count: int,
     origin = torch.where(chunk_active, origin, torch.full_like(origin, 1e9))
     extend = torch.where(chunk_active, extend, torch.zeros_like(extend))
     return origin, extend
+
+
+def _view_loss(op: cfg.OptimizationParams, pp: cfg.PipelineParams, img,
+               gt_image, scale, transmitance):
+    """One view's training loss: fused L1+SSIM, the optional scale
+    regulariser over its visible primitives and the transmittance term."""
+    loss = losses.fused_l1_ssim_loss(img, gt_image, op.lambda_dssim)
+    if op.reg_weight > 0.0:
+        loss = loss + torch.mean(scale ** 2) * op.reg_weight
+    if pp.enable_transmitance:
+        loss = loss + torch.mean(torch.abs(1.0 - transmitance))
+    return loss
+
+
+def _adam_update(state: TrainState, culled_views,
+                 op: cfg.OptimizationParams, spatial_lr_scale: float,
+                 chunk_size: int):
+    """Sparse chunk Adam from the parameters' gradients over the union of
+    the views' visible chunks; clears the gradients."""
+    params = state.params
+    chunk_mask = None
+    for c in culled_views:
+        vis = cluster.scatter_chunk_mask(c.chunk_ids, c.num_visible_chunks,
+                                         params.capacity // chunk_size)
+        chunk_mask = vis if chunk_mask is None else chunk_mask | vis
+    lrs = LearningRates.from_config(op, spatial_lr_scale, state.step)
+    sparse_adam_step(params, {k: v.grad for k, v in
+                              params.fields().items()},
+                     state.adam, lrs, chunk_mask, chunk_size)
+    params.zero_grad(set_to_none=True)
 
 
 def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
@@ -130,21 +162,10 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
         if collect_stats and not use_sink:
             aux.tiles_color.retain_grad()
             aux.tiles_trans.retain_grad()
-        loss = losses.fused_l1_ssim_loss(out.img, gt_image, op.lambda_dssim)
-        if op.reg_weight > 0.0:
-            loss = loss + torch.mean(culled.scale ** 2) * op.reg_weight
-        if pp.enable_transmitance:
-            loss = loss + torch.mean(torch.abs(1.0 - out.transmitance))
+        loss = _view_loss(op, pp, out.img, gt_image, culled.scale,
+                          out.transmitance)
         loss.backward()
-
-        chunk_mask = cluster.scatter_chunk_mask(
-            culled.chunk_ids, culled.num_visible_chunks,
-            params.capacity // chunk_size)
-        lrs = LearningRates.from_config(op, spatial_lr_scale, state.step)
-        sparse_adam_step(params, {k: v.grad for k, v in
-                                  params.fields().items()},
-                         state.adam, lrs, chunk_mask, chunk_size)
-        params.zero_grad(set_to_none=True)
+        _adam_update(state, [culled], op, spatial_lr_scale, chunk_size)
 
         if collect_stats:
             if use_sink:
@@ -178,6 +199,75 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
         pose = pose_ops.sparse_pose_adam(pose, frame_idx, extr_row.grad,
                                          lr=op.pose_lr)
         return state, stats, pose, metrics
+
+    return step
+
+
+def make_batch_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
+                          pp: cfg.PipelineParams, caps: cfg.CapacityParams,
+                          img_h: int, img_w: int, spatial_lr_scale: float,
+                          sh_degree: int, batch_views: int,
+                          collect_stats: bool):
+    """The step over B views through ONE raster forward and ONE raster
+    backward launch (``litegs_tpu/training/trainer.py::
+    make_batch_train_step``).
+
+    Returns ``step(state, stats, chunk_origin, chunk_extend, views [B, 4,
+    4], projs, planes [B, 6, 4], centers [B, 3], gt_images [B, 3, H, W])
+    -> (state, stats, metrics)``: ONE sparse-Adam update from the mean
+    loss of the B views (render_batch over a merged B * T tile grid), with
+    the union of the views' chunk masks, and on statistics steps one
+    ``update_stats`` per view from its slice of the merged stats sink.
+    ``metrics``: ``loss`` (the mean), ``psnr`` (the mean over views) and
+    ``sizes`` [B, 3]; no ``tile_count`` (the JAX batched loop keeps no
+    blend-depth telemetry).  The 'cuda' backend only, as JAX's is
+    Pallas-only; no pose refinement.
+
+    JAX's capacity bundle per group (``_group_caps_max``), its overflow
+    no-op (``keep_old``) and the retry of overflowed groups guard fixed
+    capacities; the port's tables are exact and cannot overflow, so none
+    of them is carried over.
+    """
+    if pp.raster_backend != "cuda":
+        raise ValueError("the batched step needs the 'cuda' raster backend")
+    b = batch_views
+    chunk_size = pp.cluster_size
+
+    def step(state: TrainState, stats: statistics.StatsState,
+             chunk_origin, chunk_extend, views, projs, planes, centers,
+             gt_images):
+        params = state.params
+        params.zero_grad(set_to_none=True)
+        culled = [render_preprocess(params, chunk_origin, chunk_extend,
+                                    planes[v], centers[v], sh_degree, pp)
+                  for v in range(b)]
+        sink = None
+        if collect_stats:
+            m_total = sum(c.xyz.shape[1] for c in culled)
+            sink = raster_ops.zero_stats_sink(m_total, params.xyz.device)
+        out = render_batch(culled, views, projs, img_h, img_w, pp,
+                           stats_sink=sink)
+        trans = out.transmitance
+        loss = sum(_view_loss(op, pp, out.imgs[v], gt_images[v],
+                              culled[v].scale,
+                              None if trans is None else trans[v])
+                   for v in range(b)) / b
+        loss.backward()
+        _adam_update(state, culled, op, spatial_lr_scale, chunk_size)
+
+        if collect_stats:
+            off = out.point_offsets
+            for v, c in enumerate(culled):
+                rstats = raster_ops.RasterStats(
+                    *[s.grad[off[v]:off[v + 1]] for s in sink])
+                stats = statistics.update_stats(
+                    stats, c.chunk_ids, c.valid, out.primitive_visible[v],
+                    rstats, chunk_size)
+        imgs = out.imgs.detach()
+        psnr = sum(losses.psnr(imgs[v], gt_images[v])
+                   for v in range(b)) / b
+        metrics = {"loss": loss.detach(), "psnr": psnr, "sizes": out.sizes}
+        return state._replace(step=state.step + 1), stats, metrics
 
     return step
 
@@ -221,10 +311,6 @@ class Trainer:
     extr_init: Optional[np.ndarray] = None
 
     def __post_init__(self):
-        if self.pp.batch_views > 1:
-            raise NotImplementedError(
-                "batched views (pp.batch_views > 1) are not ported yet: "
-                "ROADMAP Queue 1, item 12")
         self.device = self.data.images.device
         self.img_h = int(self.data.images.shape[2])
         self.img_w = int(self.data.images.shape[3])
@@ -243,6 +329,16 @@ class Trainer:
                     "learnable_viewproj requires extr_init ([F,7] per frame)")
             self.pose_state = pose_ops.init_pose_state(self.extr_init,
                                                        self.device)
+        # B > 1 views per step (pp.batch_views): the 'cuda' backend without
+        # learnable_viewproj; otherwise a loud fall back to B = 1, as JAX
+        self.batch_views = 1
+        if self.pp.batch_views > 1:
+            if (self.pp.raster_backend == "cuda"
+                    and not self.op.learnable_viewproj):
+                self.batch_views = int(self.pp.batch_views)
+            else:
+                print("WARNING: batch_views > 1 requires the cuda backend "
+                      "without learnable_viewproj; using B=1", flush=True)
 
     # -- setup ---------------------------------------------------------
 
@@ -285,6 +381,45 @@ class Trainer:
                 learnable_pose=self.op.learnable_viewproj)
         return self._step_cache[key]
 
+    def _get_batch_step(self, sh_degree: int, collect: bool, b: int):
+        key = (sh_degree, collect, b)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_batch_train_step(
+                self.lp, self.op, self.pp, self.caps, self.img_h,
+                self.img_w, self.spatial_lr_scale, sh_degree, b, collect)
+        return self._step_cache[key]
+
+    def _run_epoch_batched(self, state: TrainState, stats, frame_ids,
+                           sh_deg: int, collect: bool, origin, extend):
+        """Epoch loop of ``batch_views`` frames per optimizer step through
+        one raster launch (JAX ``Trainer._run_epoch_batched``).  The
+        leftover ``len % B`` frames run through the single-view step, so
+        an epoch still sees every frame once.  As in JAX, the per-tile
+        blend depth (``tile_blend_max``) is not updated; JAX's per-frame
+        size feedback and overflow retry have nothing to do here."""
+        bv = self.batch_views
+        ids = [int(i) for i in frame_ids]
+        cut = len(ids) - len(ids) % bv
+        d = self.data
+        pending = []
+        for s in range(0, cut, bv):
+            sel = torch.tensor(ids[s:s + bv], device=self.device)
+            state, stats, metrics = self._get_batch_step(
+                sh_deg, collect, bv)(
+                state, stats, origin, extend, d.view[sel], d.proj[sel],
+                d.planes[sel], d.center[sel], d.images[sel])
+            pending.append(metrics)
+        step_fn = self._get_step(sh_deg, collect)
+        for i in ids[cut:]:
+            state, stats, metrics = step_fn(
+                state, stats, origin, extend, d.view[i], d.proj[i],
+                d.planes[i], d.center[i], d.images[i])
+            pending.append(metrics)
+        got = torch.stack([torch.stack([m["loss"], m["psnr"]])
+                           for m in pending]).cpu().numpy()
+        return state, stats, {"loss": float(np.mean(got[:, 0])),
+                              "psnr": float(np.mean(got[:, 1]))}
+
     # -- main loop -----------------------------------------------------
 
     def run_epoch(self, state: TrainState, stats, epoch: int,
@@ -303,6 +438,9 @@ class Trainer:
         if frame_ids is None:
             frame_ids = torch.randperm(self.n_frames,
                                        generator=self.generator).tolist()
+        if self.batch_views > 1:
+            return self._run_epoch_batched(state, stats, frame_ids, sh_deg,
+                                           collect, origin, extend)
         step_fn = self._get_step(sh_deg, collect)
         d = self.data
         pending = []

@@ -324,6 +324,137 @@ def test_kernels_on_redesign_cases(cuda_device, tile, case):
             assert int(got.frag_count.double().sum()) == int(contributing.sum())
 
 
+def merged_scene(tile, dev, views=3, img_h=72, img_w=100):
+    """``views`` seeded screen scenes (C = 3 and 4 alternating) merged into
+    one table over views x T tiles: (single-view raster args per view,
+    merged raster args, tiles_y, point offsets)."""
+    tile_h, tile_w = tile
+    tiles_x, tiles_y = -(-img_w // tile_w), -(-img_h // tile_h)
+    singles, tables = [], []
+    for v in range(views):
+        n = (60, 3 * tile_h * tile_w, 5)[v % 3]
+        mean, inv, color, op, z, ndc = screen_scene(
+            n, 70 + v, img_h, img_w, ((1.0, 8.0), (6.0, 16.0),
+                                      (0.5, 1.0))[v % 3], dev)
+        color = torch.cat([color, z[None]])
+        table = binning.build_tile_table(
+            ndc, z, inv, op, torch.ones(n, dtype=torch.bool, device=dev),
+            img_h, img_w, tile_h, tile_w)
+        tables.append(table)
+        singles.append((mean, inv, color, op, table.sorted_point,
+                        table.tile_start, table.tile_count, tiles_x, tile_h,
+                        tile_w))
+    merged = binning.concat_tables(tables, tiles_x * tiles_y)
+    attrs = [torch.cat([a[k] for a in singles], dim=-1) for k in range(4)]
+    offsets = np.cumsum([0] + [a[3].numel() for a in singles]).tolist()
+    return singles, (*attrs, merged.sorted_point, merged.tile_start,
+                     merged.tile_count, tiles_x, tile_h, tile_w), tiles_y, \
+        offsets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("nchan", [3, 4])
+def test_merged_grid_kernels_match_plain_and_single_views(cuda_device, tile,
+                                                          nchan):
+    """Three views on one merged grid of partial tiles (72x100): the
+    forward within TOL of its plain version and bit-equal to each view's
+    own launch, the backward with and without statistics at
+    assert_grads_close's bars, frag_count equal to the views' own."""
+    singles, margs, tiles_y, off = merged_scene(tile, cuda_device)
+    margs = (*margs[:2], margs[2][:nchan], *margs[3:])
+    singles = [(*a[:2], a[2][:nchan], *a[3:]) for a in singles]
+    before = raster_cuda.LAUNCHES
+    col, trans = raster_cuda.raster_forward(*margs, tiles_y=tiles_y)
+    torch.cuda.synchronize()
+    assert raster_cuda.LAUNCHES == before + 1
+    col_p, trans_p = raster_cuda.raster_forward_plain(*margs,
+                                                      tiles_y=tiles_y)
+    assert (col - col_p).abs().max().item() <= TOL
+    assert (trans - trans_p).abs().max().item() <= TOL
+    view_tiles = col.shape[0] // len(singles)
+    outs = [raster_cuda.raster_forward(*a) for a in singles]
+    for v, (c, t) in enumerate(outs):
+        rows = slice(v * view_tiles, (v + 1) * view_tiles)
+        assert torch.equal(col[rows], c) and torch.equal(trans[rows], t), v
+    gen = torch.Generator(device=cuda_device).manual_seed(nchan)
+    cot = (torch.randn(col.shape, generator=gen, device=cuda_device),
+           torch.randn(trans.shape, generator=gen, device=cuda_device))
+    for with_stats in (False, True):
+        got = raster_cuda.raster_backward(*margs, col, trans, *cot,
+                                          with_stats=with_stats,
+                                          tiles_y=tiles_y)
+        want = raster_cuda.raster_backward_plain(
+            *margs, col, trans, *cot, with_stats=with_stats,
+            tiles_y=tiles_y)
+        assert_grads_close(got, want)
+        if not with_stats:
+            continue
+        assert torch.equal(got.frag_count, want.frag_count)
+        for v, (a, (c, t)) in enumerate(zip(singles, outs)):
+            rows = slice(v * view_tiles, (v + 1) * view_tiles)
+            own = raster_cuda.raster_backward(
+                *a, c, t, cot[0][rows], cot[1][rows], with_stats=True)
+            assert torch.equal(got.frag_count[off[v]:off[v + 1]],
+                               own.frag_count), v
+
+
+@pytest.mark.cuda
+def test_render_batch_on_partial_tiles_equals_single_views(cuda_device):
+    """render_batch with the kernels at 37x53 (8x16 tiles, the last row
+    and column cut): images and transmittance bit-equal to each view's
+    own render, and the merged grid without the wrap wrong."""
+    from litegs_torch import render as rnd
+    img_h, img_w = 37, 53
+    dev = cuda_device
+    cam, frames = synthetic.make_cameras(3, img_h, img_w, seed=0)
+    xyz, rgb = synthetic.make_gaussian_cloud(2000, seed=1)
+    params = pad_params(create_gaussians(xyz, rgb, 2, device=dev), 2048)
+    pp = config.PipelineParams(enable_transmitance=True)
+    batch = camera_batch_from_frames(
+        cam, frames, np.zeros((3, 3, img_h, img_w), np.float32), device=dev)
+    with torch.no_grad():
+        o, e = masked_chunk_aabb(params, 2048, 128)
+        culled = [rnd.render_preprocess(params, o, e, batch.planes[v],
+                                        batch.center[v], 2, pp)
+                  for v in range(3)]
+        before = raster_cuda.LAUNCHES
+        out = rnd.render_batch(culled, batch.view, batch.proj, img_h, img_w,
+                               pp)
+        assert raster_cuda.LAUNCHES == before + 1
+        for v in range(3):
+            single = rnd.render(culled[v], batch.view[v], batch.proj[v],
+                                img_h, img_w, pp)
+            assert torch.equal(out.imgs[v], single.img), v
+            assert torch.equal(out.transmitance[v], single.transmitance), v
+            assert torch.equal(out.primitive_visible[v],
+                               single.primitive_visible), v
+        aux = out.aux
+        args = (aux.mean_pix, aux.inv_cov, aux.color_chan, aux.opacity,
+                aux.table.sorted_point, aux.table.tile_start,
+                aux.table.tile_count, 4, 8, 16)
+        _, trans0 = raster_cuda.raster_forward(*args)
+        assert not torch.equal(trans0, aux.tiles_trans)
+
+
+@pytest.mark.cuda
+def test_launch_check_refuses_a_partial_merged_grid(cuda_device):
+    _, margs, tiles_y, _ = merged_scene((8, 16), cuda_device, views=2)
+    tiles_x = margs[7]
+    assert margs[5].numel() == 2 * tiles_x * tiles_y
+    cut = (*margs[:5], margs[5][:-tiles_x], margs[6][:-tiles_x],
+           *margs[7:])
+    with pytest.raises(ValueError, match="tiles_y"):
+        raster_cuda.raster_forward(*cut, tiles_y=tiles_y)
+    col, trans = raster_cuda.raster_forward(*margs, tiles_y=tiles_y)
+    with pytest.raises(ValueError, match="tiles_y"):
+        raster_cuda.raster_backward(*cut, col[:-tiles_x], trans[:-tiles_x],
+                                    col[:-tiles_x], trans[:-tiles_x],
+                                    tiles_y=tiles_y)
+    # a whole number of rows is still a single-view grid without tiles_y
+    raster_cuda.raster_forward(*cut)
+
+
 def expansion_cases():
     """(name, attrs, counts, out_len, window_items, slots_per_step,
     prefix): numpy inputs of the streaming expansions; ``prefix`` says
@@ -656,3 +787,39 @@ def test_cli_train_metrics_resume_on_card(cuda_device, tmp_path):
                   os.path.join(model, "checkpoints", "chkpnt2.npz")],
         device=dev)
     assert [h["epoch"] for h in hist2] == [3, 4, 5]
+
+
+@pytest.mark.cuda
+def test_cli_batch_views_on_card(cuda_device, tmp_path):
+    """The command line with --batch_views 2: 7 train frames are three
+    two-view groups and one single step per epoch, each group one forward
+    and one backward launch over its merged grid."""
+    from litegs_torch import example_metrics, example_train
+    dev = cuda_device
+    data, xyz, rgb = synthetic_train.make_task(
+        n_points=400, n_frames=9, img_h=48, img_w=64, sh_degree=1, seed=5,
+        device=dev)
+    cam, frames = synthetic.make_cameras(9, 48, 64, seed=5)
+    for fr in frames:
+        fr.name += ".png"
+    scene = str(tmp_path / "scene")
+    _write_colmap_text(scene, cam, frames, xyz.astype(np.float64), rgb,
+                       data.images)
+    model = str(tmp_path / "model")
+    raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
+    raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
+    trainer, state, hist = example_train.main(
+        ["-s", scene, "-m", model, "--eval", "--iterations", "48",
+         "--sh_degree", "1", "--target_primitives", "1024",
+         "--densify_from", "1", "--densify_until", "4", "--test_epochs", "5",
+         "--batch_views", "2"], device=dev)
+    assert trainer.batch_views == 2 and len(hist) == 6
+    steps = 6 * (3 + 1)
+    assert state.step == steps
+    assert raster_cuda.LAUNCHES == steps + 2     # the 2 test views
+    assert raster_cuda.LAUNCHES_BWD == steps
+    assert raster_plain.CALLS + raster_plain.BACKWARD_CALLS == 0
+    assert hist[-1]["psnr"] > hist[0]["psnr"] + 3.0
+    res = example_metrics.main(["-s", scene, "-m", model, "--skip_train"],
+                               device=dev)
+    assert abs(res["test"]["psnr"] - hist[-1]["test_psnr"]) <= 0.01
