@@ -12,7 +12,13 @@ stops the script with a nonzero exit when it fails:
      small seeded scenes at the five supported tile sizes (the forward at
      max |diff| <= 1e-4, the backward with seeded cotangents, with and
      without statistics, at the bars in BWD_TOL); the four stream_gather
-     kernels on seeded expansions and block gathers, equal exactly;
+     kernels on seeded expansions and block gathers, equal exactly (with
+     S not a multiple of 4 and attrs 4 bytes off 16-byte alignment, A =
+     1, 3, 12 and 16, more steps than the asynchronous-copy kernel's
+     persistent grid has blocks, a partial last step, int64 offsets past
+     2^31 and below 0), the asynchronous-copy kernel on every step of
+     those cases also against the plain model of its blocks
+     (window_block_plain), slots past the total included;
   3. the serving path at full width -- 1,000,000 gaussians, SH degree 3,
      840x1296 images, 8x16 tiles, 4 views -- through
      evaluation.prepare_model / render_views / score_split, with every
@@ -24,12 +30,15 @@ stops the script with a nonzero exit when it fails:
      the default route, the asynchronous-copy route and the prefix route
      identical in every field to the non-streaming table, a render through
      each route with its launches counted, gather_blocks building the
-     128-aligned copy of the table, expand_window_kernel held to the plain
-     model of its blocks (window_step_plain) on sampled steps of both
+     128-aligned copy of the table, expand_window_kernel and
+     expand_window_async_kernel held to the plain models of their blocks
+     (window_step_plain, window_block_plain) on sampled steps of both
      expansions, each stream_gather kernel's time alone and per call beside
      its plain version, one PyTorch call and its bytes bound, the window
-     calls' remaining torch ops timed alone, and the binning stage timed
-     with the streaming kernels on and off;
+     calls' remaining torch ops timed alone, gather_blocks also at the
+     JAX package's own shape (scripts/debug_stream.py: 8 rows of 4,063,232
+     items, 18,342 runs), and the binning stage timed with the streaming
+     kernels on and off;
   4. the training path on the same scene: make_train_step from the
      sh_0-perturbed model toward the unperturbed model's renders -- steady
      steps, then statistics steps, a taming densify step and the Morton
@@ -417,15 +426,109 @@ def stream_cases():
         rng.integers(1, 90, 1001).astype(np.int32), 30001, 384, 200, True)
 
 
+def layout_cases():
+    """stream_cases' tuples with one more field, the word offset of attrs
+    in its buffer, for the layouts the window kernels branch on: S not a
+    multiple of 4 with attrs 4 bytes off a 16-byte boundary (word copies),
+    A = 1, 3, 12 and 16, a partial last step, and more steps than the
+    asynchronous-copy kernel's persistent grid has blocks (at most 16 a
+    multiprocessor, 132 of them)."""
+    for case in stream_cases():
+        yield (*case, 0)
+    rng = np.random.default_rng(21)
+    for a in (1, 3, 12, 16):
+        counts = rng.integers(0, 4, 2003).astype(np.int32)
+        yield (f"A={a}, S=4k+3, attrs off 16 bytes", rng.standard_normal(
+            (a, 2003)).astype(np.float32), counts, None, 640, 512, False, 1)
+    counts = rng.integers(0, 4, 4096).astype(np.int32)
+    yield ("A=12, S=4k, a 77-slot last step", rng.integers(
+        -2 ** 31, 2 ** 31 - 1, (12, 4096)).astype(np.int32), counts,
+        int(counts.sum()) // 512 * 512 + 77, 640, 512, False, 0)
+    counts = rng.integers(1, 3, 300_000).astype(np.int32)
+    yield ("3,500+ steps of 128 slots", rng.standard_normal(
+        (3, 300_000)).astype(np.float32), counts, None, 256, 128, True, 0)
+
+
+def device_rows(attrs, dev, offset: int):
+    """attrs as a contiguous [A, S] view that starts ``offset`` words into
+    a flat buffer on ``dev``."""
+    import torch
+    src = torch.from_numpy(attrs)
+    flat = torch.empty(src.numel() + offset, dtype=src.dtype, device=dev)
+    rows = flat[offset:].view(src.shape)
+    rows.copy_(src)
+    return rows
+
+
+def check_async_model(got, attrs, counts, window: int, step: int,
+                      what: str, blocks=None, walk: int = 1):
+    """Hold expand_window_async_kernel's output (out, rank, total, ok) to
+    window_block_plain, the plain model of its persistent blocks: every
+    step (``blocks`` None), or ``walk`` steps from each of ``blocks``
+    spread over the expansion; every slot of a step, those past the total
+    included."""
+    import torch
+    from litegs_torch.ops import stream_gather as sg
+    cum = torch.cumsum(counts, 0).cpu()
+    out, rank = got[0], got[1]
+    n_slots = rank.shape[0]
+    n_steps = -(-n_slots // step)
+    starts = ([0] if blocks is None else sorted(set(
+        np.linspace(0, n_steps - 1, blocks).astype(int))))
+    walk = n_steps if blocks is None else walk
+    attrs_cpu = attrs.cpu()
+    out, rank = out.cpu(), rank.cpu()
+    for b0 in starts:
+        plans = sg.window_block_plain(cum, int(b0),
+                                      min(int(b0) + walk, n_steps), window,
+                                      step, n_slots)
+        for b, (_, _, ok, owner, want_rank) in enumerate(plans, int(b0)):
+            s0 = b * step
+            if not ok:
+                fail(f"{what}: the block model finds step {b} outside its "
+                     "window")
+            if not (torch.equal(rank[s0:s0 + step], want_rank)
+                    and torch.equal(out[:, s0:s0 + step],
+                                    attrs_cpu[:, owner])):
+                fail(f"{what}: step {b} differs from the block model")
+
+
+def gather_cases():
+    """(what, attrs [A, S], src_lo, word offset of attrs): float32 and
+    int32 rows with offsets past S and below 0; A = 1, 3, 12 and 16 with S
+    = 4k + 1 and attrs 4 bytes off a 16-byte boundary; int64 offsets past
+    2^31 and far below 0; 40,000 runs, more than one sweep of the
+    persistent grid."""
+    rng = np.random.default_rng(1)
+    for dtype, n in ((np.float32, 700), (np.int32, 129)):
+        yield (f"{dtype.__name__} S={n}",
+               (rng.random((8, n)) * 1000).astype(dtype),
+               np.r_[np.sort(rng.integers(0, n - 1, 4)), n - 40, n + 500,
+                     -3].astype(np.int32), 0)
+    for a in (1, 3, 12, 16):
+        n = 4 * 333 + 1
+        yield (f"A={a} off 16 bytes", rng.standard_normal((a, n)).astype(
+            np.float32), rng.integers(-200, n + 200, 37).astype(np.int32), 1)
+    n = 5000
+    yield ("int64 offsets", rng.standard_normal((3, n)).astype(np.float32),
+           np.r_[rng.integers(0, n, 9), 2 ** 31, 2 ** 40 + 3, -2 ** 31 - 5,
+                 -2 ** 40, n - 1].astype(np.int64), 0)
+    n = 5_000_000
+    yield ("40,000 runs", rng.integers(-2 ** 31, 2 ** 31 - 1, (1, n)).astype(
+        np.int32), np.sort(rng.integers(0, n, 40_000)).astype(np.int32), 0)
+
+
 def phase_stream_kernels(dev):
     """The four stream_gather kernels against their plain versions on
-    seeded cases, equal exactly; returns the largest difference seen per
+    seeded cases, equal exactly, and the asynchronous-copy kernel against
+    the plain model of its blocks; returns the largest difference seen per
     kernel (0.0, or the script has stopped)."""
     import torch
     from litegs_torch.ops import stream_gather as sg
     worst = dict.fromkeys(sg.LAUNCHES, 0.0)
-    for name, attrs, counts, out_len, window, step, prefix in stream_cases():
-        attrs = torch.from_numpy(attrs).to(dev)
+    for name, attrs_np, counts, out_len, window, step, prefix, offset in \
+            layout_cases():
+        attrs = device_rows(attrs_np, dev, offset)
         counts = torch.from_numpy(counts).to(dev)
         want = sg.expand_attrs_windowed_plain(attrs, counts, out_len, window,
                                               step)
@@ -452,9 +555,13 @@ def phase_stream_kernels(dev):
                 worst[kernel],
                 exact_diff(got[0][:, :live], want[0][:, :live], what),
                 exact_diff(got[1][:live], want[1][:live], what + " rank"))
+            if kernel == "expand_window_async_kernel":
+                check_async_model(got, attrs, counts, window, step, what)
         print(f"stream kernel case {name:38s} rows={attrs.shape[0]} "
               f"items={attrs.shape[1]} slots={want[0].shape[1]} "
-              f"live={live}: {', '.join(runs)} equal to plain")
+              f"live={live} attrs offset {offset}: {', '.join(runs)} equal "
+              "to plain; the async kernel equal to its block model on "
+              "every slot")
     # the window check: a run of empty items longer than the window
     counts = torch.zeros(1024, dtype=torch.int32, device=dev)
     counts[0], counts[600] = 1, 300
@@ -466,21 +573,22 @@ def phase_stream_kernels(dev):
         torch.cuda.synchronize()
         if bool(ok):
             fail("a window overrun was not flagged")
-    rng = np.random.default_rng(1)
-    for dtype, n in ((np.float32, 700), (np.int32, 129)):
-        attrs = torch.from_numpy(
-            (rng.random((8, n)) * 1000).astype(dtype)).to(dev)
-        src_lo = torch.from_numpy(np.r_[
-            np.sort(rng.integers(0, n - 1, 4)), n - 40, n + 500, -3
-        ].astype(np.int32)).to(dev)
+    for what, attrs, src_lo, offset in gather_cases():
+        attrs = device_rows(attrs, dev, offset)
+        src_lo = torch.from_numpy(src_lo).to(dev)
+        before = sg.LAUNCHES["gather_blocks_kernel"]
         got = sg.gather_blocks(attrs, src_lo)
         torch.cuda.synchronize()
+        if sg.LAUNCHES["gather_blocks_kernel"] != before + 1:
+            fail(f"gather_blocks on {what}: not one launch")
         worst["gather_blocks_kernel"] = max(
             worst["gather_blocks_kernel"],
             exact_diff(got, sg.gather_blocks_plain(attrs, src_lo),
-                       f"gather_blocks_kernel {dtype.__name__} S={n}"))
-    print("stream kernel cases: overrun flagged by both window kernels; "
-          "gather_blocks_kernel equal to plain on float32 and int32 rows")
+                       f"gather_blocks_kernel on {what}"))
+        print(f"stream kernel case gather {what}: rows={attrs.shape[0]} "
+              f"items={attrs.shape[1]} runs={src_lo.numel()} "
+              f"({src_lo.dtype}): equal to plain")
+    print("stream kernel cases: overrun flagged by both window kernels")
     return worst
 
 
@@ -725,6 +833,9 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
                                 exact_diff(got[1], want[1], what + " rank"))
             if kernel == "expand_window_kernel":
                 check_block_model(got, attrs, counts, window, step, what)
+            if kernel == "expand_window_async_kernel":
+                check_async_model(got, attrs, counts, window, step, what,
+                                  blocks=32, walk=4)
             call_ms = time_ms(run)
             ms = kernel_device_ms(run, kernel)
             line.append(f"{kernel} {ms:.4f} ms alone ({bound_ms / ms:.1%} "
@@ -764,13 +875,51 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
     r = records["gather_blocks_kernel"]
     print(f"{label} aligned copy: rows=1 items={table_row.shape[1]} "
           f"blocks={nb} bytes={nbytes} bound_ms={bound_ms:.4f} ({bound_by})"
-          f"; gather_blocks_kernel {r['ms']:.4f} ms alone, {call_ms:.4f} "
-          f"ms its call (with the offsets' clamp); plain "
-          f"{r['plain_ms']:.4f} ms; one indexing call "
-          f"{r['library_ms']:.4f} ms")
+          f"; gather_blocks_kernel {r['ms']:.4f} ms alone "
+          f"({bound_ms / r['ms']:.1%} of the bound), {call_ms:.4f} ms its "
+          f"call (one launch); plain {r['plain_ms']:.4f} ms; one indexing "
+          f"call {r['library_ms']:.4f} ms")
+    gather_at_jax_shape(dev, label)
     for kernel, rec in records.items():
         rec["max_abs_err"] = worst[kernel]
     return launches, records
+
+
+def gather_at_jax_shape(dev, label: str):
+    """gather_blocks at the JAX package's own scale
+    (scripts/debug_stream.py:90-105): 8 float32 rows of 4,063,232 items and
+    18,342 sorted run offsets below 4,063,032, seeded as there; equal to
+    its plain version, timed alone, per call, plain and as one indexing
+    call beside its bytes bound."""
+    import torch
+    from litegs_torch.ops import stream_gather as sg
+    rng = np.random.default_rng(0)
+    row_cap, nb = 4_063_232, 2_347_776 // 128
+    attrs = torch.from_numpy(rng.standard_normal(
+        (8, row_cap)).astype(np.float32)).to(dev)
+    lo_np = np.sort(rng.integers(0, row_cap - 200, nb))
+    src_lo = torch.from_numpy(lo_np.astype(np.int32)).to(dev)
+    # the items the runs cover: the input this gather needs
+    covered = int(np.minimum(np.diff(lo_np, append=row_cap), 128).sum())
+    exact_diff(sg.gather_blocks(attrs, src_lo),
+               sg.gather_blocks_plain(attrs, src_lo),
+               f"{label}: gather_blocks_kernel at the JAX shape")
+    idx = (src_lo.long()[:, None]
+           + torch.arange(128, device=dev)).flatten().clamp(max=row_cap - 1)
+    nbytes = 4 * (8 * covered + nb + 8 * nb * 128)
+    bound_ms, bound_by = bytes_bound(nbytes, 8 * nb * 128)
+    ms = kernel_device_ms(lambda: sg.gather_blocks(attrs, src_lo),
+                          "gather_blocks_kernel")
+    call_ms = time_ms(lambda: sg.gather_blocks(attrs, src_lo))
+    plain_ms = time_ms(lambda: sg.gather_blocks_plain(attrs, src_lo))
+    library_ms = time_ms(lambda: attrs[:, idx])
+    print(f"{label} gather_blocks at the JAX shape: rows=8 "
+          f"items={row_cap} ({covered} covered by a run) blocks={nb} "
+          f"bytes={nbytes} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}); gather_blocks_kernel "
+          f"{ms:.4f} ms alone ({bound_ms / ms:.1%} of the bound), "
+          f"{call_ms:.4f} ms its call; plain {plain_ms:.4f} ms; one "
+          f"indexing call {library_ms:.4f} ms")
 
 
 def make_scene(dev, n_points: int, sh_degree: int):

@@ -25,7 +25,10 @@ the Pallas bodies in the JAX package.  The per-step owner search and the
 window check, XLA ops there too, run inside the two window kernels: their
 wrapper runs the prefix sum, allocates the two outputs and a one-byte ``ok``
 set to true, and launches (:func:`window_step_plain` is the plain model of
-one block's work).
+one block of ``expand_window_kernel``, :func:`window_block_plain` of one
+persistent block of ``expand_window_async_kernel``).  ``gather_blocks``
+hands its offsets to its kernel as they are, int32 or int64: its call is
+the one launch.
 
 The kernels move 4-byte words, so ``attrs`` may be float32 or int32 and
 integer columns ride as they are.  ``out_len`` may be any length, or None
@@ -51,6 +54,9 @@ from . import _kernels
 
 BLK = 128
 SMEM_MAX = 232448    # bytes of shared memory one block can opt in to
+# items one planning round of expand_window_async_kernel reads (four per
+# thread of its 128)
+ASYNC_ROUND = 512
 
 # kernel launches per kernel, and calls of any plain version, so a run can
 # show which route it took
@@ -73,7 +79,7 @@ def _lib() -> ctypes.CDLL:
     lib.litegs_expand_prefix.argtypes = [p] * 5 + [i] * 3 + [p]
     lib.litegs_expand_window.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.litegs_expand_window_async.argtypes = [p] * 5 + [i] * 5 + [p]
-    lib.litegs_gather_blocks.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.litegs_gather_blocks.argtypes = [p] * 3 + [i] * 4 + [p]
     for fn in (lib.litegs_expand_prefix, lib.litegs_expand_window,
                lib.litegs_expand_window_async, lib.litegs_gather_blocks):
         fn.restype = i
@@ -94,7 +100,9 @@ def _launch(kernel: str, fn_name: str, *args):
 
 
 def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of ``dev``'s current CUDA stream, from torch's own
+    accessor (no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _check_attrs(attrs):
@@ -248,10 +256,12 @@ def expand_attrs_windowed(attrs, counts, out_len=None,
         kernels stage ``window_items + 128`` items from a 128-aligned
         start).
       slots_per_step: output slots per step, the unit of the window
-        check (a block of the kernels decodes one step).
-      dma: stage each step's attribute window in shared memory as well,
-        with asynchronous copies (``expand_window_async_kernel``), instead
-        of reading attributes through the cache.
+        check (a block of ``expand_window_kernel`` decodes one step).
+      dma: run ``expand_window_async_kernel``: persistent blocks that
+        stage each step's owned items in shared memory by asynchronous
+        copies while the previous step is written out
+        (:func:`window_block_plain`), instead of reading attributes through
+        the cache.
     Returns:
       (out [A, out_len], rank [out_len] int32, total 0-d int64, ok 0-d
       bool).  Slots past ``total`` hold arbitrary values.
@@ -266,11 +276,15 @@ def expand_attrs_windowed(attrs, counts, out_len=None,
     a, s = attrs.shape
     names = ("expand_window_kernel", "litegs_expand_window")
     if dma:
-        smem = (a + 1) * (window_items + BLK) * 4
+        # two stages of [A + 1, window_items + 8] words (ends and
+        # attributes), and a step's owners and ranks
+        # (csrc/stream_gather.cu async_smem)
+        smem = 4 * (2 * (a + 1) * (window_items + 8) + 2 * slots_per_step)
         if smem > SMEM_MAX:
             raise ValueError(
-                f"a [{a} + 1, {window_items + BLK}] window needs {smem} "
-                f"bytes of shared memory; a block has {SMEM_MAX}")
+                f"two [{a} + 1, {window_items + 8}] stages and a "
+                f"{slots_per_step}-slot step need {smem} bytes of shared "
+                f"memory; a block has {SMEM_MAX}")
         names = ("expand_window_async_kernel", "litegs_expand_window_async")
     attrs = attrs.contiguous()
     if out_len and s:
@@ -286,6 +300,8 @@ def gather_blocks(attrs, src_lo):
 
     The 128-alignment pass of a binning table has exactly this shape (each
     aligned block reads one tile's consecutive unaligned entries).
+    ``src_lo`` may be int32 or int64; the kernel clamps it, so a call is
+    one launch besides the output's allocation.
     """
     if attrs.device.type == "cpu":
         return gather_blocks_plain(attrs, src_lo)
@@ -298,11 +314,10 @@ def gather_blocks(attrs, src_lo):
     attrs = attrs.contiguous()
     out = torch.empty((a, nb * BLK), dtype=attrs.dtype, device=attrs.device)
     if nb and a:
-        # clamp before narrowing, so an int64 offset cannot wrap
-        lo = src_lo.clamp(0, s - 1).to(torch.int32).contiguous()
+        src_lo = src_lo.contiguous()
         _launch("gather_blocks_kernel", "litegs_gather_blocks",
-                attrs.data_ptr(), lo.data_ptr(), out.data_ptr(), a, s, nb,
-                _stream(attrs.device))
+                attrs.data_ptr(), src_lo.data_ptr(), out.data_ptr(), a, s,
+                nb, int(src_lo.dtype == torch.int64), _stream(attrs.device))
     return out
 
 
@@ -381,6 +396,85 @@ def window_step_plain(cum, step: int, window_items: int,
     slots = torch.arange(s0, s0 + n, dtype=cum.dtype, device=cum.device)
     local = torch.searchsorted(start, slots, right=True) - 1
     return lo, True, w0 + local, (slots - start[local]).to(torch.int32)
+
+
+def window_block_plain(cum, first_step: int, end_step: int,
+                       window_items: int, slots_per_step: int,
+                       out_len: int):
+    """The plain model of one persistent block of
+    ``expand_window_async_kernel``: steps ``[first_step, end_step)`` of an
+    expansion with the inclusive prefix sum ``cum`` (one item at least),
+    planned as the block plans them.
+
+    The block searches ``lo``, the owner of its first step's first slot
+    (:func:`owner_of_slots`), once.  Each step's plan then reads ``cum``
+    from ``lo`` on, :data:`ASYNC_ROUND` items a round, and counts the
+    items ending at or before the step's last slot and the next step's
+    first slot (both clamped to ``[0, total - 1]``): the first count short
+    of the round gives ``hi``, the owner of the last slot, and the second
+    the next step's ``lo``.  The rounds stop once they pass
+    ``lo + window_items``; ``ok`` (the window check of
+    ``litegs_tpu/ops/stream_gather.py:223-238``) is ``hi - lo <=
+    window_items``.  A next ``lo`` the rounds did not reach is searched
+    anew.  A passing step decodes each slot's owner among the ends of
+    ``[lo, hi]``; a slot past the total takes the owner of the last live
+    slot.
+
+    Returns one ``(lo, hi, ok, owner [n] int64, rank [n] int32)`` per step
+    for its n slots inside ``[0, out_len)``; ``hi``, ``owner`` and
+    ``rank`` are None when ``ok`` is False (the kernel then writes
+    nothing for the step).
+    """
+    s = cum.shape[0]
+    last_live = max(int(cum[-1]) - 1, 0)
+
+    def owner(q):
+        return int(owner_of_slots(cum, cum.new_tensor([q]))[0])
+
+    lo = owner(min(first_step * slots_per_step, last_live))
+    plans = []
+    for step in range(first_step, end_step):
+        s0 = step * slots_per_step
+        q1 = min(s0 + slots_per_step - 1, last_live)
+        qn = min(s0 + slots_per_step, last_live)
+        hi = nxt = None
+        base = lo
+        while True:
+            seg = cum[base:base + ASYNC_ROUND]
+            n1, nn = int((seg <= q1).sum()), int((seg <= qn).sum())
+            if nxt is None and nn < len(seg):
+                nxt = base + nn
+            if n1 < len(seg):
+                hi = base + n1
+                break
+            if base + len(seg) >= s:      # every count is zero
+                hi = s - 1
+                nxt = s - 1 if nxt is None else nxt
+                break
+            if base + len(seg) > lo + window_items:
+                break
+            base += ASYNC_ROUND
+        if hi is not None and hi - lo > window_items:
+            hi = None
+        if nxt is None:
+            nxt = owner(qn)
+        if hi is None:
+            plans.append((lo, None, False, None, None))
+        else:
+            n = min(slots_per_step, out_len - s0)
+            slots = torch.arange(s0, s0 + n, dtype=cum.dtype,
+                                 device=cum.device)
+            ends = cum[lo:hi + 1]
+            local = torch.searchsorted(
+                ends, slots.clamp(max=last_live), right=True).clamp_(
+                    max=hi - lo)
+            start_lo = cum[lo - 1] if lo else cum.new_zeros(())
+            start = torch.where(local > 0, ends[(local - 1).clamp(min=0)],
+                                start_lo)
+            plans.append((lo, hi, True, lo + local,
+                          (slots - start).to(torch.int32)))
+        lo = nxt
+    return plans
 
 
 def gather_blocks_plain(attrs, src_lo):

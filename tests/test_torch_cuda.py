@@ -509,11 +509,44 @@ def expansion_cases():
         (8, 1024)).astype(np.float32), counts, 256, 256, 128, False)
 
 
+def layout_cases():
+    """expansion_cases' tuples with one more field, the word offset of
+    attrs in its buffer, for the layouts the window kernels branch on:
+    S not a multiple of 4 with attrs 4 bytes off a 16-byte boundary (word
+    copies), A = 1, 3, 12 and 16, out_len not a multiple of the step, and
+    more steps than the async kernel's persistent grid has blocks (at most
+    16 a multiprocessor, 132 of them)."""
+    for case in expansion_cases():
+        yield (*case, 0)
+    rng = np.random.default_rng(21)
+    for a in (1, 3, 12, 16):
+        counts = rng.integers(0, 4, 2003).astype(np.int32)
+        yield (f"A={a}, S=4k+3, attrs off 16 bytes", rng.standard_normal(
+            (a, 2003)).astype(np.float32), counts, None, 640, 512, False, 1)
+    counts = rng.integers(0, 4, 4096).astype(np.int32)
+    yield ("A=12, S=4k, a 77-slot last step", rng.integers(
+        -2 ** 31, 2 ** 31 - 1, (12, 4096)).astype(np.int32), counts,
+        int(counts.sum()) // 512 * 512 + 77, 640, 512, False, 0)
+    counts = rng.integers(1, 3, 300_000).astype(np.int32)
+    yield ("3,500+ steps of 128 slots", rng.standard_normal(
+        (3, 300_000)).astype(np.float32), counts, None, 256, 128, True, 0)
+
+
+def device_rows(attrs, dev, offset: int):
+    """attrs as a contiguous [A, S] view that starts ``offset`` words into
+    a flat buffer on ``dev``."""
+    flat = torch.empty(attrs.size + offset, dtype=torch.from_numpy(
+        attrs).dtype, device=dev)
+    rows = flat[offset:].view(attrs.shape)
+    rows.copy_(torch.from_numpy(attrs))
+    return rows
+
+
 @pytest.mark.cuda
 def test_expansion_kernels_match_plain(cuda_device):
-    for name, attrs, counts, out_len, window, step, prefix in \
-            expansion_cases():
-        attrs = torch.tensor(attrs, device=cuda_device)
+    for name, attrs, counts, out_len, window, step, prefix, offset in \
+            layout_cases():
+        attrs = device_rows(attrs, cuda_device, offset)
         counts = torch.tensor(counts, device=cuda_device)
         want = stream_gather.expand_attrs_windowed_plain(
             attrs, counts, out_len, window, step)
@@ -587,10 +620,13 @@ def test_expansion_window_overrun_is_flagged(cuda_device):
 @pytest.mark.cuda
 def test_window_kernel_matches_block_model(cuda_device):
     """expand_window_kernel against window_step_plain, the plain model of
-    one of its blocks, on up to 64 steps of every case: the owner of every
-    slot of the step and its rank, slots past the total included."""
-    for name, attrs, counts, out_len, window, step, _ in expansion_cases():
-        attrs_d = torch.tensor(attrs, device=cuda_device)
+    one of its blocks, on up to 64 steps of every case, and
+    expand_window_async_kernel against window_block_plain, the plain model
+    of its persistent blocks, on every step: the owner of every slot and
+    its rank, slots past the total included."""
+    for name, attrs, counts, out_len, window, step, _, offset in \
+            layout_cases():
+        attrs_d = device_rows(attrs, cuda_device, offset)
         counts_d = torch.tensor(counts, device=cuda_device)
         out, rank, total, ok = stream_gather.expand_attrs_windowed(
             attrs_d, counts_d, out_len, window, step)
@@ -607,23 +643,67 @@ def test_window_kernel_matches_block_model(cuda_device):
             assert torch.equal(rank[s0:s0 + step], want_rank), (name, b)
             assert torch.equal(out[:, s0:s0 + step],
                                torch.tensor(attrs)[:, owner]), (name, b)
+        out, rank, total, ok = stream_gather.expand_attrs_windowed(
+            attrs_d, counts_d, out_len, window, step, dma=True)
+        out, rank = out.cpu(), rank.cpu()
+        assert bool(ok), name
+        plans = stream_gather.window_block_plain(cum, 0, steps, window, step,
+                                                 n_slots)
+        for b, (lo, hi, ok_b, owner, want_rank) in enumerate(plans):
+            s0 = b * step
+            assert ok_b, (name, b)
+            assert torch.equal(rank[s0:s0 + step], want_rank), (name, b)
+            assert torch.equal(out[:, s0:s0 + step],
+                               torch.tensor(attrs)[:, owner]), (name, b)
+
+
+def gather_cases():
+    """(what, attrs [A, S] numpy, src_lo numpy, word offset of attrs):
+    float32 and int32 rows; A = 1, 3, 12 and 16 with S = 4k + 1 and attrs
+    4 bytes off a 16-byte boundary; int64 offsets past 2^31 and far below
+    0; and 40,000 runs, more than one sweep of the persistent grid."""
+    rng = np.random.default_rng(1)
+    for dtype, s in ((np.float32, 700), (np.int32, 129)):
+        yield (dtype.__name__, (rng.random((8, s)) * 1000).astype(dtype),
+               np.r_[np.sort(rng.integers(0, s - 1, 4)), s - 40, s + 500,
+                     -3].astype(np.int32), 0)
+    for a in (1, 3, 12, 16):
+        s = 4 * 333 + 1
+        yield (f"A={a} off 16 bytes", rng.standard_normal((a, s)).astype(
+            np.float32), rng.integers(-200, s + 200, 37).astype(np.int32), 1)
+    s = 5000
+    yield ("int64 offsets", rng.standard_normal((3, s)).astype(np.float32),
+           np.r_[rng.integers(0, s, 9), 2 ** 31, 2 ** 40 + 3, -2 ** 31 - 5,
+                 -2 ** 40, s - 1].astype(np.int64), 0)
+    s = 5_000_000
+    yield ("40,000 runs", rng.integers(-2 ** 31, 2 ** 31 - 1, (1, s)).astype(
+        np.int32), np.sort(rng.integers(0, s, 40_000)).astype(np.int32), 0)
 
 
 @pytest.mark.cuda
 def test_gather_blocks_kernel_matches_plain(cuda_device):
-    rng = np.random.default_rng(1)
-    for dtype, s in ((np.float32, 700), (np.int32, 129)):
-        attrs = torch.tensor((rng.random((8, s)) * 1000).astype(dtype),
-                             device=cuda_device)
-        src_lo = torch.tensor(
-            np.r_[np.sort(rng.integers(0, s - 1, 4)), s - 40, s + 500, -3]
-            .astype(np.int32), device=cuda_device)
+    """Every case equal to the plain version, one launch per call, and the
+    launch is the only CUDA kernel of the call (torch.profiler)."""
+    for what, attrs, src_lo, offset in gather_cases():
+        attrs = device_rows(attrs, cuda_device, offset)
+        src_lo = torch.from_numpy(src_lo).to(cuda_device)
         before = stream_gather.LAUNCHES["gather_blocks_kernel"]
         got = stream_gather.gather_blocks(attrs, src_lo)
         torch.cuda.synchronize()
         assert stream_gather.LAUNCHES["gather_blocks_kernel"] == before + 1
-        assert torch.equal(got, stream_gather.gather_blocks_plain(attrs,
-                                                                  src_lo))
+        assert torch.equal(got, stream_gather.gather_blocks_plain(
+            attrs, src_lo)), what
+        # three calls under the profiler: three kernels, all the gather
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                stream_gather.gather_blocks(attrs, src_lo)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 3 and all(
+            "gather_blocks_kernel" in k for k in kernels), (what, kernels)
 
 
 @pytest.mark.cuda

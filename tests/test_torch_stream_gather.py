@@ -130,6 +130,28 @@ def test_gather_blocks_matches_jax():
                                       padded[:, lo:lo + 128])
 
 
+def test_gather_blocks_int64_offsets():
+    """int64 offsets, as a caller's index arithmetic leaves them: those
+    JAX can take (it narrows to int32) against JAX, those past 2^31 and
+    far below 0 against the clip contract (the first or the last item)."""
+    rng = np.random.default_rng(2)
+    s = 1001
+    attrs = rng.integers(-2 ** 31, 2 ** 31 - 1, (3, s)).astype(np.int32)
+    in_range = np.r_[np.sort(rng.integers(0, s, 5)), s - 1, -7]
+    want = np.asarray(jsg.gather_blocks(
+        jnp.asarray(attrs.view(np.float32)),
+        jnp.asarray(in_range.astype(np.int32)),
+        interpret=True)).view(np.int32)
+    got = tsg.gather_blocks(T(attrs), T(in_range.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    wide = np.array([2 ** 31, 2 ** 40 + 3, -2 ** 31 - 5, -2 ** 40, s],
+                    np.int64)
+    got = tsg.gather_blocks(T(attrs), T(wide)).numpy().reshape(3, 5, 128)
+    padded = np.pad(attrs, ((0, 0), (0, 128)))
+    for b, lo in enumerate((s - 1, s - 1, 0, 0, s - 1)):
+        np.testing.assert_array_equal(got[:, b], padded[:, lo:lo + 128])
+
+
 def test_owner_of_slots_matches_jax():
     rng = np.random.default_rng(7)
     counts = rng.integers(0, 6, 500).astype(np.int32)

@@ -7,9 +7,14 @@ inside the kernel.
 that work; here it is held, on numpy-seeded counts, to
 ``litegs_tpu.ops.stream_gather.owner_of_slots`` and to the ``ok``, ``out``
 and ``rank`` of JAX's ``expand_attrs_windowed`` (its Pallas kernel in
-interpret mode), and to the port's ``owner_of_slots``.  Everything compared
-is an integer: tolerance 0.  The kernels themselves are held to the same
-model on the card (tests/test_torch_cuda.py).
+interpret mode), and to the port's ``owner_of_slots``.
+``expand_window_async_kernel`` plans differently: persistent blocks, each
+over a range of steps, carry each step's first owner over from the
+previous step's plan.  ``window_block_plain`` models one such block and is
+held, for several splits of the steps among blocks, to the same JAX
+functions and to JAX's ``dma=True`` expansion.  Everything compared is an
+integer: tolerance 0.  The kernels themselves are held to the same models
+on the card (tests/test_torch_cuda.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -113,24 +118,53 @@ def exact_total():
     return counts, 1024, 256, 256
 
 
+def long_zero_run_after_a_step():
+    # step 0 ends exactly at the end of item 63's run and 4,936 empty items
+    # follow: the next step's first owner lies past the plan's rounds
+    counts = np.zeros(5100, np.int64)
+    counts[:64], counts[5000:] = 2, 2
+    return counts, 384, 256, 128
+
+
+def partial_last_step():
+    # out_len is not a multiple of the step: the last step has 77 slots
+    rng = np.random.default_rng(10)
+    counts = rng.integers(0, 4, 1500)
+    counts[rng.random(1500) < 0.3] = 0
+    return counts, 5 * 512 + 77, 640, 512
+
+
+def spans_past_a_round():
+    # more than ASYNC_ROUND items between a step's first and last owner
+    rng = np.random.default_rng(11)
+    counts = rng.integers(0, 2, 4000)
+    counts[rng.random(4000) < 0.5] = 0
+    total = int(counts.sum())
+    return counts, (total + 127) // 128 * 128, 768, 128
+
+
 CASES = [zeros_anywhere, runs_longer_than_a_step,
          straddling_step_edges_short_length, window_past_the_last_item,
          overrun, owners_at_the_window_limit,
          owners_one_past_the_window_limit, many_items_few_slots,
          binning_expansion_1_shape, binning_expansion_2_shape, one_item,
          leading_zeros, exact_total]
+ASYNC_CASES = CASES + [long_zero_run_after_a_step, partial_last_step,
+                       spans_past_a_round]
 OK = {"overrun": False, "owners_one_past_the_window_limit": False}
 
 
-def jax_expansion(counts, out_len, window, step):
+def jax_expansion(counts, out_len, window, step, dma=False):
     """JAX's expansion of rows whose row 0 is the item index, so that its
-    out[0] is each slot's owner."""
+    out[0] is each slot's owner.  JAX takes whole steps only: an out_len
+    that is not a multiple of the step runs at the next multiple."""
     s = counts.shape[0]
     attrs = np.zeros((8, s), np.float32)
     attrs[0] = np.arange(s)
     out, rank, total, ok = jsg.expand_attrs_windowed(
-        jnp.asarray(attrs), jnp.asarray(counts.astype(np.int32)), out_len,
-        window_items=window, slots_per_step=step, interpret=True)
+        jnp.asarray(attrs), jnp.asarray(counts.astype(np.int32)),
+        -(-out_len // step) * step, window_items=window,
+        slots_per_step=step, interpret=True, dma=dma)
     return (np.asarray(out[0]).astype(np.int64), np.asarray(rank),
             int(total), bool(ok))
 
@@ -182,3 +216,51 @@ def test_block_model_of_no_live_slot():
                                          jnp.zeros(1, jnp.int32)))
     assert lo == want[0] == 299 and ok
     assert owner.shape == (128,) and bool((owner == 299).all())
+
+
+@pytest.mark.parametrize("case", ASYNC_CASES)
+def test_async_block_model_matches_jax(case):
+    """window_block_plain, with the steps split among 1, 3 and one block
+    per step (every split gives every step the same plan), against JAX's
+    owner_of_slots and its dma=True expansion: lo, hi, ok, and the owner
+    and rank of every live slot; slots past the total take the owner of
+    the last live slot."""
+    counts, out_len, window, step = case()
+    owner_j, rank_j, total, ok_j = jax_expansion(counts, out_len, window,
+                                                 step, dma=True)
+    assert ok_j == OK.get(case.__name__, True)
+    cum = torch.cumsum(torch.tensor(counts), 0)
+    cum_j = jnp.asarray(np.cumsum(counts).astype(np.int32))
+    last_live = max(total - 1, 0)
+    last_owner = int(tsg.owner_of_slots(cum, torch.tensor([last_live]))[0])
+    steps = -(-out_len // step)
+    for grid in sorted({1, 3, steps}):
+        bounds = [steps * k // grid for k in range(grid + 1)]
+        plans = [plan for b0, b1 in zip(bounds, bounds[1:])
+                 for plan in tsg.window_block_plain(cum, b0, b1, window,
+                                                    step, out_len)]
+        assert len(plans) == steps
+        for b, (lo, hi, ok, owner, rank) in enumerate(plans):
+            s0 = b * step
+            q = np.array([min(s0, last_live), min(s0 + step - 1, last_live)],
+                         np.int32)
+            lo_j, hi_j = np.asarray(jsg.owner_of_slots(cum_j,
+                                                       jnp.asarray(q)))
+            assert lo == lo_j, (grid, b)
+            assert ok == (hi_j - lo_j <= window), (grid, b)
+            if not ok:
+                assert hi is None and owner is None
+                continue
+            assert hi == hi_j, (grid, b)
+            n = min(step, out_len - s0)
+            live = max(0, min(n, total - s0))
+            assert owner.shape == rank.shape == (n,)
+            np.testing.assert_array_equal(owner[:live].numpy(),
+                                          owner_j[s0:s0 + live])
+            np.testing.assert_array_equal(rank[:live].numpy(),
+                                          rank_j[s0:s0 + live])
+            past = torch.arange(s0 + live, s0 + n)
+            start = int(cum[last_owner] - counts[last_owner])
+            assert bool((owner[live:] == last_owner).all()), (grid, b)
+            assert torch.equal(rank[live:], (past - start).int())
+        assert all(p[2] for p in plans) == ok_j
