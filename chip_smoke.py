@@ -75,7 +75,21 @@ stops the script with a nonzero exit when it fails:
      time and kernels per step at B = 1, 2 and 4; and example_train
      --batch_views 2 on phase 6's COLMAP scene beside phase 6's B = 1 run;
      every launch counted;
-  8. a JSON line with one record per kernel, the card's name and power
+  8. evaluation and data parallelism on the serving scene: LPIPS-vgg with
+     seeded random weights through LPIPS_WEIGHTS (a 3x128x160 crop on the
+     card within 1e-4 relative of the CPU module in float64, ms per
+     full-width pair, score_split's LPIPS over the 4 views and its
+     seconds); on an NCCL group of one rank, 8 make_parallel_train_step
+     steps (float32 wire, sharded statistics) each within PAR_TOL of
+     make_train_step's update from the same state, the bf16 wire's losses
+     within 1e-3 relative of the float32 wire's, ms per step both ways and
+     the all-reduce spans' own time at both wire dtypes; the sharded
+     densify bit-equal to densify_step on the run's statistics and the
+     time of its 32 bisection rounds; then torchrun --nproc_per_node 1
+     python -m litegs_torch.example_train --parallel on, on phase 6's
+     COLMAP scene at phase 6's depth, its test PSNR within 0.5 dB of
+     phase 6's Trainer run and its finish ply written by rank 0;
+  9. a JSON line with one record per kernel, the card's name and power
      limit as nvidia-smi prints them, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -86,6 +100,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -189,6 +204,22 @@ BATCH_SIZES = (2, 4)
 BATCH_STEPS = 8
 BATCH_WARMUP = 2
 BATCH_PROFILE_STEPS = 4
+# evaluation and data parallelism (phase 8): the LPIPS crop held to the
+# CPU module in float64 and its relative bar; the data-parallel steps and
+# the per-field bar of each update against make_train_step's (w = 1 and
+# wsum = 1 make the mean exact, so 0 is expected but for the backward
+# kernel's atomics, which may add in another order), the bf16 wire's
+# relative bar on the losses, the profiled steps per wire dtype, and the
+# bar on the torchrun CLI's test PSNR against phase 6's Trainer
+LPIPS_CROP = (128, 160)
+LPIPS_RTOL = 1e-4
+PAR_STEPS = 8
+PAR_TOL = 1e-5
+BF16_LOSS_RTOL = 1e-3
+PAR_PROFILE_STEPS = 2
+CLI_PSNR_TOL = 0.5
+PAR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "build", "chip_smoke_parallel")
 # integer operations per output slot of an expansion beside its A copies:
 # the binary search over a window of 640-768 starts (10 steps of about 4)
 # and the rank
@@ -1634,7 +1665,7 @@ def phase_colmap(dev, prepared, active: int):
     """The command line on a COLMAP scene on disk at full width (phase 6);
     returns the path's kernel launches by record name, and the training
     run's argv (less -m), it/s and test PSNRs; the scene stays on disk
-    for phase 7."""
+    for phases 7 and 8."""
     import torch
     from litegs_torch import config, evaluation, example_metrics
     from litegs_torch import example_train
@@ -2045,8 +2076,8 @@ def phase_batched(dev, prepared, active: int, batch, sh_degree: int):
 
 def phase_batch_cli(dev, run_b1: dict):
     """example_train --batch_views 2 on phase 6's COLMAP scene (8 train
-    frames, 4 groups per epoch), beside phase 6's B = 1 run; removes the
-    scene.  Returns the launches [forward, backward, window]."""
+    frames, 4 groups per epoch), beside phase 6's B = 1 run.  Returns the
+    launches [forward, backward, window]."""
     from litegs_torch import example_train
     zero_path_counts()
     t0 = time.perf_counter()
@@ -2081,8 +2112,404 @@ def phase_batch_cli(dev, run_b1: dict):
     if not (np.isfinite([h["loss"] for h in hist]).all()
             and hist[-1]["psnr"] > hist[0]["psnr"] + 3.0):
         fail("colmap run --batch_views 2: train PSNR did not rise by 3 dB")
-    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
     return counts
+
+
+def random_lpips_npz(path: str, seed: int = 7) -> str:
+    """Seeded random LPIPS-vgg weights in the exporter's npz format."""
+    rng = np.random.default_rng(seed)
+    widths = [64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
+    out, cin = {}, 3
+    for i, cout in enumerate(widths):
+        w = rng.standard_normal((cout, cin, 3, 3)) * (2.0 / (cin * 9)) ** 0.5
+        out[f"conv{i}_weight"] = w.astype(np.float32)
+        out[f"conv{i}_bias"] = (0.1 * rng.standard_normal(cout)).astype(
+            np.float32)
+        cin = cout
+    for k, t in enumerate((1, 3, 6, 9, 12)):
+        out[f"lin{k}"] = np.abs(rng.standard_normal(widths[t])).astype(
+            np.float32)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **out)
+    return path
+
+
+def perturbed_model(dev, prepared, active: int):
+    """The training phase's model: sh_0 perturbed (seed 3), padded to
+    CAPACITY_FACTOR times the live count."""
+    import torch
+    from litegs_torch import config
+    from litegs_torch.scene import pad_params
+    rng = np.random.default_rng(3)
+    model = prepared.mapped(torch.clone)
+    with torch.no_grad():
+        model.sh_0 += torch.from_numpy(rng.normal(
+            0.0, SH0_NOISE, tuple(model.sh_0.shape)).astype(np.float32)
+        ).to(dev)
+    cap = config.round_up(int(active * CAPACITY_FACTOR),
+                          config.PipelineParams().cluster_size)
+    return pad_params(model, cap)
+
+
+def phase_lpips(dev, prepared, active: int, batch, sh_degree: int):
+    """LPIPS at full width (phase 8): seeded random weights through
+    LPIPS_WEIGHTS; a crop on the card against the CPU module in float64;
+    ms per full-width pair; score_split over the serving views with the
+    perturbed model.  Returns the split's launches [forward, backward,
+    window]."""
+    import torch
+    from litegs_torch import config, evaluation, metrics
+    from litegs_torch.ops import lpips
+    from litegs_torch.training.trainer import make_eval_render
+    path = random_lpips_npz(os.path.join(PAR_DIR, "lpips_vgg.npz"))
+    os.environ["LPIPS_WEIGHTS"] = path
+    try:
+        weights = lpips.load_weights()
+        net = lpips.LPIPSVGG(weights, device=dev)
+        ref = lpips.LPIPSVGG(weights, device="cpu").double()
+        model = perturbed_model(dev, prepared, active)
+        img = make_eval_render(config.PipelineParams(), IMG_H, IMG_W,
+                               sh_degree)(
+            model, active, batch.view[0], batch.proj[0], batch.planes[0],
+            batch.center[0])[0]
+        gt = batch.images[0]
+        h, w = LPIPS_CROP
+        crop = (slice(None), slice(IMG_H // 3, IMG_H // 3 + h),
+                slice(IMG_W // 3, IMG_W // 3 + w))
+        got = float(net(img[crop], gt[crop]))
+        want = float(ref(img[crop].cpu(), gt[crop].cpu()))
+        rel = abs(got - want) / want
+        pair_ms = time_ms(lambda: net(img, gt))
+        print(f"lpips crop 3x{h}x{w}: card {got:.8f}, CPU float64 "
+              f"{want:.8f}, relative difference {rel:.3e} (bar "
+              f"{LPIPS_RTOL:g}); full-width pair 3x{IMG_H}x{IMG_W}: "
+              f"{pair_ms:.3f} ms (CUDA events, median of {REPEATS}, TF32 "
+              "off inside the module)")
+        if not (want > 0 and rel <= LPIPS_RTOL):
+            fail(f"LPIPS on the card {got} against the CPU's {want}")
+        if metrics.lpips_fn() is None:
+            fail("lpips_fn found no weights through LPIPS_WEIGHTS")
+        pp = config.PipelineParams()
+        zero_path_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluation.score_split(model, active, batch, pp, sh_degree)
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+        n_views = int(batch.images.shape[0])
+        counts = read_path_counts("score_split with LPIPS", 0, n_views)
+        print(f"score_split with LPIPS over {n_views} serving views "
+              f"(perturbed model): {json.dumps(res)}; {split_s:.3f} s per "
+              "split (host clock, synchronised)")
+        if res["lpips"] is None or not np.isfinite(res["lpips"]) or not (
+                res["lpips"] > 0):
+            fail(f"score_split reported LPIPS {res['lpips']}")
+    finally:
+        del os.environ["LPIPS_WEIGHTS"]
+    return np.asarray(counts)
+
+
+def clone_state(state):
+    """A TrainState with its own copies of the parameters and moments."""
+    import torch
+    from litegs_torch.training import optimizer
+    return state._replace(
+        params=state.params.mapped(torch.clone),
+        adam=optimizer.AdamState(*[{k: v.clone() for k, v in d.items()}
+                                   for d in state.adam]))
+
+
+def field_diff(got, want) -> float:
+    """Largest |got - want| over the parameters and both moments, each
+    scaled by the largest |want| of its field."""
+    worst = 0.0
+    pairs = [(getattr(got.params, k), getattr(want.params, k))
+             for k in got.params.fields()]
+    for d_got, d_want in zip(got.adam, want.adam):
+        pairs += [(d_got[k], d_want[k]) for k in d_got]
+    for a, b in pairs:
+        scale = float(b.detach().abs().max())
+        if scale > 0:
+            worst = max(worst, float((a.detach() - b.detach()).abs().max())
+                        / scale)
+    return worst
+
+
+def span_ms(prof, name: str, steps: int):
+    """(spans, host ms, device ms) per step of the profiler spans named
+    ``name``, the device time being that of the kernels launched inside
+    them."""
+    spans = [e for e in prof.key_averages() if e.key == name]
+    return (sum(e.count for e in spans) / steps,
+            sum(e.cpu_time_total for e in spans) / steps / 1e3,
+            sum(e.device_time_total for e in spans) / steps / 1e3)
+
+
+def phase_parallel(dev, prepared, active: int, batch, sh_degree: int):
+    """Data parallelism at full width (phase 8) on an NCCL group of one
+    rank: PAR_STEPS steps of make_parallel_train_step (float32 wire,
+    sharded statistics) each held to make_train_step's update from the
+    same state; the bf16 wire's losses over the same steps; ms per step
+    both ways and the all-reduce's own time from its profiler spans; the
+    sharded densify against the replicated one on the run's statistics.
+    Returns the launches [forward, backward, window] of the counted
+    data-parallel steps."""
+    import torch
+    import torch.distributed as dist
+    from litegs_torch import config, parallel
+    from litegs_torch.parallel import densify as pdensify
+    from litegs_torch.training import densify, optimizer
+    from litegs_torch.training import statistics as tstats
+    from litegs_torch.training.trainer import (TrainState, make_train_step,
+                                               masked_chunk_aabb)
+    store = os.path.join(PAR_DIR, "store")
+    os.makedirs(PAR_DIR, exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    world = parallel.initialize_distributed(f"file://{store}", 1, 0,
+                                            device=dev)
+    backend = dist.get_backend()
+    print(f"process group: world {world}, backend {backend}")
+    if world != 1 or (dev.type == "cuda" and backend != "nccl"):
+        fail(f"expected an NCCL group of one rank, got {backend} x {world}")
+    try:
+        counts = np.zeros(3, np.int64)
+        n_views, _, img_h, img_w = batch.images.shape
+        lp = config.ModelParams(sh_degree=sh_degree)
+        op = config.OptimizationParams()
+        chunk = config.PipelineParams().cluster_size
+        params = perturbed_model(dev, prepared, active)
+        cap = params.capacity
+        caps = config.CapacityParams(primitive_capacity=cap)
+        # non-zero moments (tests/test_torch_train.py's): from zero moments
+        # an update moves every coordinate by lr sqrt(10) times the sign of
+        # its gradient, which a gradient at roundoff level would decide
+        adam = optimizer.init_adam(params)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        for v in adam.exp_avg.values():
+            v.normal_(0.0, 1e-4, generator=gen)
+        for v in adam.exp_avg_sq.values():
+            v.uniform_(1e-8, 1e-6, generator=gen)
+        start = TrainState(params, adam, active, 0)
+        wire_mb = {w: 59 * cap * b / 1e6 for w, b in (("f32", 4),
+                                                      ("bf16", 2))}
+
+        def steps_of(wire):
+            pp = config.PipelineParams(grad_allreduce_dtype=wire)
+            return (make_train_step(lp, op, pp, caps, img_h, img_w, 1.0,
+                                    sh_degree, True),
+                    parallel.make_parallel_train_step(
+                        lp, op, pp, caps, img_h, img_w, 1.0, sh_degree,
+                        True, sharded_stats=True))
+
+        def view(i):
+            return [x[i % n_views] for x in (batch.view, batch.proj,
+                                               batch.planes, batch.center,
+                                               batch.images)]
+
+        # ---- float32 wire: each update against make_train_step's ----
+        single, par = steps_of("f32")
+        state = clone_state(start)
+        stats = pdensify.init_sharded_stats(cap, dev)
+        single_stats = tstats.init_stats(cap, dev)
+        worst, exact, ms, single_ms, losses_f32 = 0.0, True, [], [], []
+        parallel.COLLECTIVE_CALLS.clear()
+        for i in range(PAR_STEPS):
+            with torch.no_grad():
+                origin, extend = masked_chunk_aabb(state.params, active,
+                                                   chunk)
+            before = clone_state(state)
+            zero_path_counts()
+            marks = Marks()
+            marks.mark("start")
+            state, stats, m = par(state, stats, origin, extend, *view(i),
+                                  1.0)
+            marks.mark("step")
+            ms.append(marks.split()[0][1])
+            counts += read_path_counts(f"data-parallel step {i}", 1, 0)
+            losses_f32.append(float(m["loss"]))
+            marks = Marks()
+            marks.mark("start")
+            want, single_stats, wm = single(before, single_stats, origin,
+                                            extend, *view(i))
+            marks.mark("step")
+            single_ms.append(marks.split()[0][1])
+            d = field_diff(state, want)
+            exact = exact and d == 0.0 and float(m["loss"]) == float(
+                wm["loss"])
+            worst = max(worst, d, abs(float(m["loss"]) - float(wm["loss"]))
+                        / abs(float(wm["loss"])))
+            del before, want
+        calls = dict(parallel.COLLECTIVE_CALLS)
+        print(f"data-parallel steps (float32 wire, {wire_mb['f32']:.1f} MB "
+              f"of gradients per all-reduce): losses "
+              f"{np.round(losses_f32, 6).tolist()}; each update against "
+              f"make_train_step's from the same state: largest scaled "
+              f"difference {worst:.3e} (bar {PAR_TOL:g}), bit-equal in "
+              f"every step: {exact}; collectives {calls}")
+        if not worst <= PAR_TOL:
+            fail(f"the world-1 data-parallel update differs from "
+                 f"make_train_step's by {worst}")
+        med, med1 = (statistics.median(x[1:]) for x in (ms, single_ms))
+        print(f"ms per step (CUDA events, median of {PAR_STEPS - 1} after "
+              f"1): data-parallel {med:.3f}, make_train_step {med1:.3f} "
+              f"({med - med1:+.3f} ms)")
+
+        # ---- sharded densify on the run's statistics ----
+        dp = config.DensifyParams(target_primitives=TARGET_PRIMITIVES,
+                                  densify_from=0, densify_until=2,
+                                  densification_interval=1,
+                                  opacity_reset_interval=100)
+        full = pdensify.gather_stats(stats, cap)
+        t0 = time.perf_counter()
+        got = pdensify.sharded_densify_step(
+            state.params, state.adam, stats, active, 1, dp, 2, active, 1.0,
+            chunk, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        want = densify.densify_step(
+            state.params, state.adam, full, active, 1, dp, 2, active, 1.0,
+            chunk, generator=torch.Generator().manual_seed(0))
+        same = got[2] == want[2] and got[3] == want[3] and all(
+            torch.equal(a, b) for a, b in zip(
+                [*got[0].fields().values(), *got[1].exp_avg.values(),
+                 *got[1].exp_avg_sq.values()],
+                [*want[0].fields().values(), *want[1].exp_avg.values(),
+                 *want[1].exp_avg_sq.values()]))
+        uniform = densify.draw_uniform(cap, torch.Generator().manual_seed(0),
+                                       dev)
+        keys = densify.taming_sample_keys(densify.get_score(
+            state.params, full, torch.arange(cap, device=dev) < active),
+            uniform)
+        budget = int(got[2] - active) + chunk
+        topk_ms = time_ms(lambda: pdensify.sharded_topk_mask(keys, budget))
+        print(f"sharded densify (world 1): active {active} -> {got[2]}, "
+              f"bit-equal to densify_step: {same}; {sharded_s:.3f} s; "
+              f"sharded_topk_mask's 32 bisection rounds over {cap} keys: "
+              f"{topk_ms:.3f} ms (CUDA events, median of {REPEATS})")
+        if not same or not got[2] > active:
+            fail("the sharded densify differs from densify_step or did not "
+                 "grow the model")
+        del got, want, full, keys
+
+        # ---- bf16 wire: the losses of the same steps ----
+        _, par16 = steps_of("bf16")
+        state16 = clone_state(start)
+        stats16 = pdensify.init_sharded_stats(cap, dev)
+        losses_16 = []
+        for i in range(PAR_STEPS):
+            with torch.no_grad():
+                origin, extend = masked_chunk_aabb(state16.params, active,
+                                                   chunk)
+            zero_path_counts()
+            state16, stats16, m = par16(state16, stats16, origin, extend,
+                                        *view(i), 1.0)
+            counts += read_path_counts(f"bf16-wire step {i}", 1, 0)
+            losses_16.append(float(m["loss"]))
+        rel = np.abs(np.array(losses_16) - losses_f32) / np.abs(losses_f32)
+        print(f"bf16 wire ({wire_mb['bf16']:.1f} MB per all-reduce): losses "
+              f"{np.round(losses_16, 6).tolist()}; largest relative "
+              f"difference from the float32 wire's {rel.max():.3e} (bar "
+              f"{BF16_LOSS_RTOL:g})")
+        if not rel.max() <= BF16_LOSS_RTOL:
+            fail(f"bf16-wire losses differ from float32's by {rel.max()}")
+        del state16, stats16
+
+        # ---- the all-reduce's own time, from its profiler spans ----
+        for wire in ("f32", "bf16"):
+            _, step = steps_of(wire)
+            box = [clone_state(start), pdensify.init_sharded_stats(cap, dev)]
+
+            def run():
+                for i in range(PAR_STEPS, PAR_STEPS + PAR_PROFILE_STEPS):
+                    with torch.no_grad():
+                        o, e = masked_chunk_aabb(box[0].params, active,
+                                                 chunk)
+                    box[0], box[1], _ = step(box[0], box[1], o, e,
+                                             *view(i), 1.0)
+
+            run()                                  # warm-up
+            zero_path_counts()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PAR_PROFILE_STEPS
+            counts += read_path_counts(f"profiled {wire} steps",
+                                       PAR_PROFILE_STEPS, 0)
+            n_spans, host, device = span_ms(prof, "collective:all_reduce",
+                                            PAR_PROFILE_STEPS)
+            nccl = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "nccl" in e.key.lower()) / PAR_PROFILE_STEPS / 1e3
+            print(f"profiled {PAR_PROFILE_STEPS} data-parallel steps, "
+                  f"{wire} wire: wall {wall:.3f} ms/step; the "
+                  f"'collective:all_reduce' spans ({n_spans:g} a step) "
+                  f"{host:.3f} ms "
+                  f"host, {device:.3f} ms of device kernels per step; NCCL "
+                  f"kernels {nccl:.3f} ms per step (one rank: no transfer)")
+            del box
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_cli(run_b1: dict):
+    """torchrun with one process: example_train --parallel on, on phase
+    6's COLMAP scene at phase 6's depth; its test PSNR against phase 6's
+    Trainer run, its finish ply from rank 0."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    model = os.path.join(COLMAP_DIR, "model_parallel")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+           "--master_port", str(port), "-m", "litegs_torch.example_train",
+           *run_b1["argv"], "-m", model, "--parallel", "on"]
+    t0 = time.perf_counter()
+    # a session of its own, so that a timeout stops torchrun's worker too
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail("torchrun example_train --parallel on took over 600 s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"torchrun example_train --parallel on exited "
+             f"{proc.returncode}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    test, took = {}, None
+    for line in stdout.splitlines():
+        if "] test PSNR " in line:
+            epoch = int(line.split("]")[0].lstrip("[epoch "))
+            test[epoch] = float(line.rsplit(" ", 1)[1])
+        elif line.startswith("takes: "):       # takes: 6.3s (64 iterations)
+            secs, iters = line[7:].split("s (")
+            took = int(iters.split()[0]) / float(secs)
+    want = dict(zip((3, 7), run_b1["test_psnr"]))
+    ply = os.path.join(model, "point_cloud", "finish", "point_cloud.ply")
+    using = [ln for ln in stdout.splitlines()
+             if ln.startswith("using ParallelTrainer")]
+    steps = len(run_b1["epoch_s"]) * (COLMAP_VIEWS - 2)   # 8 train views
+    print(f"torchrun --nproc_per_node 1 example_train --parallel on: "
+          f"{wall:.1f} s wall (process start and kernel load included); "
+          f"{using}; {took or float('nan'):.2f} it/s over start's loop "
+          f"(host clock, seconds to one decimal) against phase 6's "
+          f"Trainer's {steps / sum(run_b1['epoch_s']):.2f}; test PSNR "
+          f"{test} against phase 6's Trainer {want} "
+          f"(bar {CLI_PSNR_TOL} dB); finish ply from rank 0: "
+          f"{os.path.exists(ply)}")
+    if not using or set(test) != set(want) or not os.path.exists(ply):
+        fail(f"torchrun run incomplete:\n{stdout[-3000:]}")
+    if not all(abs(test[e] - want[e]) <= CLI_PSNR_TOL for e in want):
+        fail(f"torchrun test PSNR {test} against the Trainer's {want}")
 
 
 def main() -> int:
@@ -2136,9 +2563,19 @@ def main() -> int:
     batched += phase_batch_cli(dev, run_b1)
     print(f"batched phase {time.perf_counter() - t0:.1f} s; launches on its "
           f"path {batched.tolist()}")
-    fwd_launches += colmap["raster_forward"] + int(batched[0])
-    bwd["launches"] += colmap["raster_backward"] + int(batched[1])
-    win_training += colmap["expand_window_kernel"] + int(batched[2])
+    t0 = time.perf_counter()
+    par = phase_lpips(dev, prepared, active, batch, SH_DEGREE)
+    par += phase_parallel(dev, prepared, active, batch, SH_DEGREE)
+    phase_parallel_cli(run_b1)
+    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    print(f"evaluation and data-parallel phase {time.perf_counter() - t0:.1f}"
+          f" s; launches on its path {par.tolist()}")
+    fwd_launches += colmap["raster_forward"] + int(batched[0]) + int(par[0])
+    bwd["launches"] += (colmap["raster_backward"] + int(batched[1])
+                        + int(par[1]))
+    win_training += (colmap["expand_window_kernel"] + int(batched[2])
+                     + int(par[2]))
     fwd["launches"] = fwd_launches
     # the merged forward is bit-equal to the single views' (checked)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], worst_fwd)

@@ -6,4 +6,4 @@ written by hand (``csrc/``, built on first use by ``ops/_kernels.py``).
 It imports neither JAX nor ``litegs_tpu``.
 """
 from . import (config, data, evaluation, io, metrics, ops,  # noqa: F401
-               render, scene, training, utils)
+               parallel, render, scene, training, utils)

@@ -5,7 +5,10 @@
         -m <output_dir> --target_primitives 1000000 --iterations 10000
 
 Takes the root script's flags.  Resume with ``--start_checkpoint
-<output_dir>/checkpoints/chkpnt<E>.npz``.
+<output_dir>/checkpoints/chkpnt<E>.npz``.  On N cards, data-parallel:
+
+    torchrun --nproc_per_node N -m litegs_torch.example_train \
+        -s <colmap_scene_dir> -m <output_dir> --parallel on
 """
 import argparse
 
@@ -42,3 +45,6 @@ def main(argv=None, device="cuda"):
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

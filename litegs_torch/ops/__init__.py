@@ -1,2 +1,2 @@
-from . import (binning, losses, projection, raster, raster_cuda,  # noqa: F401
-               raster_plain)
+from . import (binning, losses, lpips, projection, raster,  # noqa: F401
+               raster_cuda, raster_plain)

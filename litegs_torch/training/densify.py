@@ -124,11 +124,14 @@ def split_and_clone(params: GaussianModel, adam: AdamState,
                     epoch: int, dp: DensifyParams, densify_until: int,
                     init_points_num: int, screen_extent: float,
                     chunk_size: int, generator=None, uniform=None,
-                    normal=None):
+                    normal=None, selected=None):
     """Budgeted densification step (reference densify.py:294-363).
 
     Draws ``uniform`` [N] (taming selection) and ``normal`` [3, N] (split
-    offsets) from ``generator`` unless they are given.
+    offsets) from ``generator`` unless they are given.  ``selected``: a
+    precomputed [N] selection mask (the sharded selection of
+    ``parallel.densify``), which takes the place of the selection here and
+    of its draw, so both paths share this append tail.
     Returns (params, adam, active_count).
     """
     n = params.capacity
@@ -136,7 +139,9 @@ def split_and_clone(params: GaussianModel, adam: AdamState,
     idx = torch.arange(n, device=dev)
     active_mask = idx < active_count
 
-    if dp.densify_mode == "official":
+    if selected is not None:
+        budget = int(selected.sum())
+    elif dp.densify_mode == "official":
         # original-3DGS criterion: mean NDC positional-gradient norm over
         # the statistics window >= threshold (no primitive budget)
         want = ((statistics.mean_grad_norm(stats)
@@ -194,13 +199,16 @@ def split_and_clone(params: GaussianModel, adam: AdamState,
 
 def prune(params: GaussianModel, adam: AdamState,
           stats: statistics.StatsState, active_count: int,
-          dp: DensifyParams, chunk_size: int, stats_valid_count=None):
+          dp: DensifyParams, chunk_size: int, stats_valid_count=None,
+          prune_mask=None):
     """Compact pruned primitives out via a stable permutation (reference
     densify.py:138-157 + _prune_optimizer :72-98).
 
     stats_valid_count: primitives appended after the statistics were
     collected are not pruned (the reference's prune mask covers the
     pre-append prefix only, densify.py:278-280); they stay active.
+    prune_mask: a precomputed [N] mask (the sharded path), in place of the
+    one computed here from ``stats``.
     Returns (params, adam, active_count).
     """
     n = params.capacity
@@ -209,7 +217,10 @@ def prune(params: GaussianModel, adam: AdamState,
     prunable = active_mask
     if stats_valid_count is not None:
         prunable = prunable & (idx < stats_valid_count)
-    prune_mask = get_prune_mask(params, stats, prunable, dp)
+    if prune_mask is None:
+        prune_mask = get_prune_mask(params, stats, prunable, dp)
+    else:
+        prune_mask = prune_mask & prunable
     # a run about to prune >80% of its primitives is broken (diverged
     # opacities / dead stats); the reference hard-asserts here
     # (densify.py:146-147)

@@ -7,9 +7,13 @@ device_preload, data.py:178-190), build the Trainer, run the epoch loop
 with the reference's hooks (test PSNR at ``test_epochs``, ply export at
 ``save_epochs`` + finish, checkpoint at ``checkpoint_epochs``, resume from
 ``start_checkpoint``) and, with pose refinement, write the refined
-extrinsics to ``viewproj.npz``.  ``pp.batch_views`` reaches the Trainer,
-whose epochs then take B views per optimizer step; epochs, history and
-the iteration counts printed here count views, as at B = 1.
+extrinsics to ``viewproj.npz``.  Launched by torchrun it joins the
+process group; with ``pp.parallel`` (see ``_use_parallel``) it trains the
+data-parallel ``ParallelTrainer`` on each rank's share of the training
+frames, and only rank 0 logs and writes files.  ``pp.batch_views``
+reaches the Trainer, whose epochs then take B views per optimizer step;
+epochs, history and the iteration counts printed here count views, as at
+B = 1.
 """
 from __future__ import annotations
 
@@ -49,6 +53,23 @@ def split_train_test(frames, eval_mode: bool, source_path: str):
         test = [f for i, f in enumerate(frames) if i % 8 == 0]
         return train, test
     return list(frames), []
+
+
+def shard_frames_for_process(frames, process_index: Optional[int] = None,
+                             process_count: Optional[int] = None):
+    """The frames of one rank: the round-robin slice ``rank::world`` of
+    the frame list (by ``torch.distributed``'s rank and world size unless
+    they are given), so no rank loads another rank's images.  The identity
+    for one process."""
+    if process_index is None or process_count is None:
+        from ..parallel import world
+        count, index = world()
+        process_count = count if process_count is None else process_count
+        process_index = index if process_index is None else process_index
+    if process_count <= 1:
+        return list(frames)
+    return [f for i, f in enumerate(frames)
+            if i % process_count == process_index]
 
 
 def build_camera_batch(cams, frames, images_dir: str, resolution: int,
@@ -112,17 +133,34 @@ def _ckpt_tree(trainer, state, stats):
     return tree
 
 
-def _pick_trainer(lp, op, pp, dp, caps, data, radius, extr_init):
-    """The trainer for ``pp.parallel`` on one device: 'auto' and 'off' take
-    the single-device Trainer; 'on' asks for the data-parallel trainer,
-    which is not ported."""
+def _use_parallel(pp: cfg.PipelineParams, op: cfg.OptimizationParams):
+    """Whether ``pp.parallel`` asks for the data-parallel trainer: 'auto'
+    iff the world has more than one rank, 'on' always, 'off' never.  Pose
+    refinement is single-device only: 'auto' falls back to Trainer, 'on'
+    raises."""
     want = pp.parallel
     if want not in ("auto", "on", "off"):
         raise ValueError(f"pp.parallel must be auto|on|off, got {want!r}")
-    if want == "on":
-        raise NotImplementedError(
-            "pp.parallel='on' (the data-parallel trainer) is not ported "
-            "yet: ROADMAP Queue 1, item 13")
+    from ..parallel import world
+    use = want == "on" or (want == "auto" and world()[0] > 1)
+    if use and op.learnable_viewproj:
+        if want == "on":
+            raise ValueError(
+                "pp.parallel='on' is incompatible with learnable_viewproj "
+                "(pose state is per-frame; single device only)")
+        use = False
+    return use
+
+
+def _pick_trainer(lp, op, pp, dp, caps, data, radius, extr_init,
+                  device="cuda"):
+    """The data-parallel ``ParallelTrainer`` when ``_use_parallel`` says
+    so (``data`` then holds this rank's frames), else ``Trainer``."""
+    if _use_parallel(pp, op):
+        from ..parallel.trainer import ParallelTrainer
+        return ParallelTrainer(lp=lp, op=op, pp=pp, dp=dp, caps=caps,
+                               data=data, spatial_lr_scale=radius,
+                               device=device)
     return Trainer(lp=lp, op=op, pp=pp, dp=dp, caps=caps, data=data,
                    spatial_lr_scale=radius, extr_init=extr_init)
 
@@ -139,10 +177,21 @@ def start(lp: cfg.ModelParams, op: cfg.OptimizationParams,
     ``psnr``, ``active`` count and ``seconds`` (host clock, the epoch and
     its boundary), and ``test_psnr`` on test epochs."""
     dev = resolve_device(device)
+    from ..parallel import initialize_distributed, world
+    # joins torchrun's process group; one process without its environment
+    initialize_distributed(device=dev)
+    writer = world()[1] == 0          # only rank 0 logs and writes files
+    verbose = verbose and writer
     t_load = time.time()
     cams, frames, xyz, rgb = io_manager.load_colmap_result(lp.source_path)
     train_frames, test_frames = split_train_test(frames, lp.eval,
                                                  lp.source_path)
+    # the scene radius of all training frames, the same on every rank
+    _, radius = camera_dataset_norm(train_frames)
+    n_train = len(train_frames)
+    parallel = _use_parallel(pp, op)
+    if parallel:
+        train_frames = shard_frames_for_process(train_frames)
     images_dir = os.path.join(lp.source_path, lp.images)
     data, img_h, img_w = build_camera_batch(cams, train_frames, images_dir,
                                             lp.resolution, device=dev)
@@ -150,9 +199,8 @@ def start(lp: cfg.ModelParams, op: cfg.OptimizationParams,
     if test_frames:
         test_data, _, _ = build_camera_batch(cams, test_frames, images_dir,
                                              lp.resolution, device=dev)
-    _, radius = camera_dataset_norm(train_frames)
     if verbose:
-        print(f"loaded {len(train_frames)} train / {len(test_frames)} test "
+        print(f"loaded {n_train} train / {len(test_frames)} test "
               f"frames at {img_h}x{img_w}, {xyz.shape[0]} seed points, "
               f"radius {radius:.2f} ({time.time() - t_load:.1f}s)",
               flush=True)
@@ -162,7 +210,11 @@ def start(lp: cfg.ModelParams, op: cfg.OptimizationParams,
     extr_init = None
     if op.learnable_viewproj:
         extr_init = np.stack([fr.extr_params() for fr in train_frames])
-    trainer = _pick_trainer(lp, op, pp, dp, caps, data, radius, extr_init)
+    trainer = _pick_trainer(lp, op, pp, dp, caps, data, radius, extr_init,
+                            device=dev)
+    if verbose and parallel:
+        print(f"using ParallelTrainer over {trainer.d} rank(s), "
+              f"{len(train_frames)} frames on rank 0", flush=True)
 
     state = trainer.init_state(xyz, rgb)
     stats = trainer.init_stats()
@@ -202,18 +254,23 @@ def start(lp: cfg.ModelParams, op: cfg.OptimizationParams,
                   flush=True)
         if epoch in test_epochs and test_data is not None:
             metrics["test_psnr"] = trainer.evaluate(state, test_data, epoch)
-            print(f"[epoch {epoch}] test PSNR {metrics['test_psnr']:.2f}",
-                  flush=True)
-        if epoch in save_epochs:
+            if writer:
+                print(f"[epoch {epoch}] test PSNR "
+                      f"{metrics['test_psnr']:.2f}", flush=True)
+        if epoch in save_epochs and writer:
             export_ply(lp.model_path, state,
                        iteration=(epoch + 1) * trainer.n_frames)
         if epoch in checkpoint_epochs:
-            io_manager.save_checkpoint(
-                ckpt_dir, epoch, _ckpt_tree(trainer, state, stats))
+            # every rank gathers (the stats may be sharded); rank 0 writes
+            tree = _ckpt_tree(trainer, state, stats)
+            if writer:
+                io_manager.save_checkpoint(ckpt_dir, epoch, tree)
     elapsed = time.time() - t0
     if verbose:
         iters = trainer.total_epochs * trainer.n_frames
         print(f"takes: {elapsed:.1f}s ({iters} iterations)", flush=True)
+    if not writer:
+        return trainer, state, history
     export_ply(lp.model_path, state, final=True)
     if trainer.pose_state is not None:
         # refined camera extrinsics (reference saves viewproj.pth,

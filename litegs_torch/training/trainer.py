@@ -73,8 +73,8 @@ def masked_chunk_aabb(params: GaussianModel, active_count: int,
     return origin, extend
 
 
-def _view_loss(op: cfg.OptimizationParams, pp: cfg.PipelineParams, img,
-               gt_image, scale, transmitance):
+def view_loss(op: cfg.OptimizationParams, pp: cfg.PipelineParams, img,
+              gt_image, scale, transmitance):
     """One view's training loss: fused L1+SSIM, the optional scale
     regulariser over its visible primitives and the transmittance term."""
     loss = losses.fused_l1_ssim_loss(img, gt_image, op.lambda_dssim)
@@ -101,6 +101,29 @@ def _adam_update(state: TrainState, culled_views,
                               params.fields().items()},
                      state.adam, lrs, chunk_mask, chunk_size)
     params.zero_grad(set_to_none=True)
+
+
+def view_raster_stats(out, sink, pp: cfg.PipelineParams, img_h: int,
+                      img_w: int) -> raster_ops.RasterStats:
+    """One view's densification statistics after the loss's backward: the
+    gradients of the stats sink (``'cuda'`` backend, the same kernel run as
+    the parameter gradients) or, without a sink, the explicit
+    ``raster_stats`` pass from the cotangents of the raster outputs, which
+    the caller kept with ``retain_grad``."""
+    if sink is not None:
+        return raster_ops.RasterStats(*[s.grad for s in sink])
+    tile_h, tile_w = pp.tile_size
+    tiles_x = math.ceil(img_w / tile_w)
+    tiles_total = math.ceil(img_h / tile_h) * tiles_x
+    aux = out.aux
+    d_trans = aux.tiles_trans.grad
+    if d_trans is None:
+        d_trans = torch.zeros_like(aux.tiles_trans)
+    return raster_ops.raster_stats(
+        aux.mean_pix, aux.inv_cov, aux.color_chan, aux.opacity, aux.table,
+        aux.tiles_color, aux.tiles_trans, aux.tiles_color.grad, d_trans,
+        tiles_total, tiles_x, tile_h, tile_w, img_h, img_w,
+        backend=pp.raster_backend)
 
 
 def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
@@ -134,9 +157,6 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
     explicit ``raster_stats`` pass, as the JAX trainer does on its jnp
     backend.
     """
-    tile_h, tile_w = pp.tile_size
-    tiles_x = math.ceil(img_w / tile_w)
-    tiles_total = math.ceil(img_h / tile_h) * tiles_x
     chunk_size = pp.cluster_size
     use_sink = collect_stats and pp.raster_backend == "cuda"
 
@@ -162,26 +182,16 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
         if collect_stats and not use_sink:
             aux.tiles_color.retain_grad()
             aux.tiles_trans.retain_grad()
-        loss = _view_loss(op, pp, out.img, gt_image, culled.scale,
-                          out.transmitance)
+        loss = view_loss(op, pp, out.img, gt_image, culled.scale,
+                         out.transmitance)
         loss.backward()
         _adam_update(state, [culled], op, spatial_lr_scale, chunk_size)
 
         if collect_stats:
-            if use_sink:
-                rstats = raster_ops.RasterStats(*[s.grad for s in sink])
-            else:
-                d_trans = aux.tiles_trans.grad
-                if d_trans is None:
-                    d_trans = torch.zeros_like(aux.tiles_trans)
-                rstats = raster_ops.raster_stats(
-                    aux.mean_pix, aux.inv_cov, aux.color_chan, aux.opacity,
-                    aux.table, aux.tiles_color, aux.tiles_trans,
-                    aux.tiles_color.grad, d_trans, tiles_total, tiles_x,
-                    tile_h, tile_w, img_h, img_w, backend=pp.raster_backend)
             stats = statistics.update_stats(
                 stats, culled.chunk_ids, culled.valid,
-                out.primitive_visible, rstats, chunk_size)
+                out.primitive_visible,
+                view_raster_stats(out, sink, pp, img_h, img_w), chunk_size)
 
         metrics = {
             "loss": loss.detach(),
@@ -248,9 +258,9 @@ def make_batch_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
         out = render_batch(culled, views, projs, img_h, img_w, pp,
                            stats_sink=sink)
         trans = out.transmitance
-        loss = sum(_view_loss(op, pp, out.imgs[v], gt_images[v],
-                              culled[v].scale,
-                              None if trans is None else trans[v])
+        loss = sum(view_loss(op, pp, out.imgs[v], gt_images[v],
+                             culled[v].scale,
+                             None if trans is None else trans[v])
                    for v in range(b)) / b
         loss.backward()
         _adam_update(state, culled, op, spatial_lr_scale, chunk_size)

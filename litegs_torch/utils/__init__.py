@@ -2,7 +2,7 @@ from __future__ import annotations
 
 import torch
 
-from . import math, sh  # noqa: F401
+from . import math, profiling, sh  # noqa: F401
 
 
 def resolve_device(device="cuda") -> torch.device:

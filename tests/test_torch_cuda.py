@@ -903,3 +903,96 @@ def test_cli_batch_views_on_card(cuda_device, tmp_path):
     res = example_metrics.main(["-s", scene, "-m", model, "--skip_train"],
                                device=dev)
     assert abs(res["test"]["psnr"] - hist[-1]["test_psnr"]) <= 0.01
+
+
+def _random_lpips_weights(seed=7):
+    """Random LPIPS-vgg weights in ``ops.lpips.load_weights``' layout."""
+    rng = np.random.default_rng(seed)
+    widths = [64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
+    convs, cin = [], 3
+    for cout in widths:
+        w = rng.standard_normal((cout, cin, 3, 3)) * (2.0 / (cin * 9)) ** 0.5
+        convs.append((w.astype(np.float32),
+                      (0.1 * rng.standard_normal(cout)).astype(np.float32)))
+        cin = cout
+    lins = [np.abs(rng.standard_normal(widths[t])).astype(np.float32)
+            for t in (1, 3, 6, 9, 12)]
+    return {"convs": convs, "lins": lins}
+
+
+@pytest.mark.cuda
+def test_lpips_on_card_matches_cpu(cuda_device):
+    """The network on the card (cuDNN) against the same module on the CPU
+    in float64, at rel 1e-4, with TF32 switched on globally: the module
+    turns it off around its convolutions."""
+    from litegs_torch.ops import lpips
+    weights = _random_lpips_weights()
+    rng = np.random.default_rng(3)
+    img = torch.tensor(rng.random((3, 67, 95)), dtype=torch.float32)
+    gt = (img + 0.1 * torch.tensor(rng.standard_normal(img.shape),
+                                   dtype=torch.float32)).clamp(0, 1)
+    want = float(lpips.LPIPSVGG(weights, device="cpu").double()(img, gt))
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        net = lpips.LPIPSVGG(weights, device=cuda_device)
+        got = float(net(img.to(cuda_device), gt.to(cuda_device)))
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert want > 0 and abs(got - want) <= 1e-4 * want, (got, want)
+
+
+@pytest.mark.cuda
+def test_nccl_world1_step_matches_train_step(cuda_device, tmp_path):
+    """The data-parallel step on a real NCCL group of one rank: w = 1 and
+    wsum = 1, so each of 3 updates equals make_train_step's from the same
+    state (the backward kernel's atomics may reorder sums: parameters at
+    1e-5 of each field's largest value), through real collectives."""
+    import torch.distributed as dist
+    from litegs_torch import parallel
+    assert parallel.initialize_distributed(
+        f"file://{tmp_path}/store", 1, 0, device=cuda_device) == 1
+    try:
+        assert dist.get_backend() == "nccl"
+        data, xyz, rgb = synthetic_train.make_task(
+            n_points=500, n_frames=3, img_h=48, img_w=64, sh_degree=1,
+            seed=3, device=cuda_device)
+        params = pad_params(create_gaussians(xyz, rgb, 1,
+                                             device=cuda_device), 1024)
+        adam = optimizer.init_adam(params)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        for d, (lo, hi) in zip(adam, ((-1e-4, 1e-4), (1e-8, 1e-6))):
+            for v in d.values():     # non-zero moments: see test_torch_train
+                v.uniform_(lo, hi, generator=gen)
+        state = TrainState(params, adam, 512, 0)
+        lp = config.ModelParams(sh_degree=1)
+        op = config.OptimizationParams(iterations=96,
+                                       position_lr_max_steps=96)
+        pp = config.PipelineParams(grad_allreduce_dtype="f32")
+        single = make_train_step(lp, op, pp, config.CapacityParams(1024),
+                                 48, 64, 4.4, 1, True)
+        par = parallel.make_parallel_train_step(
+            lp, op, pp, config.CapacityParams(1024), 48, 64, 4.4, 1, True)
+        stats = statistics.init_stats(1024, cuda_device)
+        parallel.COLLECTIVE_CALLS.clear()
+        for i in range(3):
+            copy = TrainState(state.params.mapped(torch.clone),
+                              optimizer.AdamState(*[
+                                  {k: v.clone() for k, v in d.items()}
+                                  for d in state.adam]),
+                              state.active_count, state.step)
+            with torch.no_grad():
+                origin, extend = masked_chunk_aabb(state.params, 512, 128)
+            view = [x[i] for x in data]
+            want, _, wm = single(copy, stats, origin, extend, *view)
+            state, stats, m = par(state, stats, origin, extend, *view, 1.0)
+            assert m["sizes"].shape == (1, 3)
+            assert abs(m["loss"].item() - wm["loss"].item()) <= 1e-6
+            for k, v in state.params.fields().items():
+                ref = getattr(want.params, k)
+                assert (v - ref).abs().max() <= 1e-5 * ref.abs().max(), k
+        assert parallel.COLLECTIVE_CALLS["all_reduce"] == 3 * 4
+        assert parallel.COLLECTIVE_CALLS["all_gather"] == 3
+    finally:
+        dist.destroy_process_group()

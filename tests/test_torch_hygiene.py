@@ -59,6 +59,34 @@ def test_default_device_without_cuda_raises():
     cam, frames = synthetic.make_cameras(1, 8, 8, seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         camera_batch_from_frames(cam, frames, np.zeros((1, 3, 8, 8)))
+    # the data-parallel entry points and the LPIPS network
+    from litegs_torch import config, parallel
+    from litegs_torch.ops import lpips
+    from litegs_torch.parallel.trainer import ParallelTrainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parallel.initialize_distributed()
+    assert parallel.initialize_distributed(device="cpu") == 1
+    kw = dict(lp=config.ModelParams(), op=config.OptimizationParams(),
+              pp=config.PipelineParams(), dp=config.DensifyParams(),
+              caps=config.CapacityParams(256),
+              data=camera_batch_from_frames(cam, frames,
+                                            np.zeros((1, 3, 8, 8)), "cpu"),
+              spatial_lr_scale=1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ParallelTrainer(**kw)
+    assert ParallelTrainer(**kw, device="cpu").n_frames == 1
+    weights = {"convs": [(np.zeros((o, i, 3, 3), np.float32),
+                          np.zeros(o, np.float32)) for i, o in (
+                             (3, 64), (64, 64), (64, 128), (128, 128),
+                             (128, 256), (256, 256), (256, 256), (256, 512),
+                             (512, 512), (512, 512), (512, 512), (512, 512),
+                             (512, 512))],
+               "lins": [np.ones(c, np.float32)
+                        for c in (64, 128, 256, 512, 512)]}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lpips.LPIPSVGG(weights)
+    assert float(lpips.LPIPSVGG(weights, device="cpu")(
+        torch.zeros(3, 16, 16), torch.ones(3, 16, 16))) == 0.0
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
@@ -110,7 +138,11 @@ def test_io_and_pose_modules_import_no_jax():
     for rel in ("io/__init__.py", "io/checkpoint.py", "io/colmap.py",
                 "io/ply.py", "data/video.py", "ops/pose.py",
                 "training/start.py", "example_train.py",
-                "example_metrics.py"):
+                "example_metrics.py", "ops/lpips.py", "parallel/__init__.py",
+                "parallel/densify.py", "parallel/trainer.py",
+                "utils/profiling.py", "full_eval.py",
+                "full_eval_aggressive.py", "scale_curve.py",
+                "print_results.py"):
         roots = set(_imported_roots(ROOT / "litegs_torch" / rel))
         assert not roots & set(FORBIDDEN), rel
 
