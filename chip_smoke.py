@@ -89,7 +89,19 @@ stops the script with a nonzero exit when it fails:
      python -m litegs_torch.example_train --parallel on, on phase 6's
      COLMAP scene at phase 6's depth, its test PSNR within 0.5 dB of
      phase 6's Trainer run and its finish ply written by rank 0;
-  9. a JSON line with one record per kernel, the card's name and power
+  9. the port's bench line: litegs_torch.bench's main in process at its
+     defaults (1,000,000 points, 840x1296, 4 frames, 32x24 tiles, 60
+     iterations) in train mode, render mode and at BENCH_B=2, each run's
+     one stdout line held to the keys of the root bench.py's json.dumps
+     dict of that mode (read from its source), its value finite and
+     positive, and every launch of the path's kernels counted (0 plain
+     calls);
+ 10. the speed challenge: litegs_torch.challenge_train at its 5,000
+     iterations on phase 6's COLMAP scene with phase 6's other flags, then
+     litegs_torch.challenge_eval on its model: the output JSON's four keys,
+     a positive train time, a test PSNR no more than 1 dB below phase 6's,
+     every launch counted;
+ 11. a JSON line with one record per kernel, the card's name and power
      limit as nvidia-smi prints them, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -97,7 +109,11 @@ It imports neither JAX nor litegs_tpu.
 """
 from __future__ import annotations
 
+import ast
+import contextlib
+import io
 import json
+import math
 import os
 import shutil
 import signal
@@ -133,6 +149,8 @@ N_VIEWS = 4
 SH_DEGREE = 3
 REPEATS = 5
 SAMPLE_TILES = 64
+# profiler windows a kernel's time alone may take (kernel_device_ms)
+PROFILE_WINDOWS = 3
 # training phase: steps per window, the warm-up steps left out of the
 # per-step median, the sh_0 perturbation, and growth room
 STEADY_STEPS = 24
@@ -220,6 +238,20 @@ PAR_PROFILE_STEPS = 2
 CLI_PSNR_TOL = 0.5
 PAR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "build", "chip_smoke_parallel")
+# the bench (phase 9): its modes (label, environment, metric), the
+# iterations and frames of its defaults, and the root bench.py whose
+# json.dumps keys each line must carry
+BENCH_MODES = (("train", {}, "train_iters_per_sec"),
+               ("render", {"BENCH_MODE": "render"}, "render_mpix_per_sec"),
+               ("B=2", {"BENCH_B": "2"}, "train_views_per_sec"))
+BENCH_ITERS = 60
+BENCH_FRAMES = 4
+ROOT_BENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "bench.py")
+# the speed challenge (phase 10): its iterations, and how far its test
+# PSNR may fall below phase 6's 64-step run
+CHALLENGE_ITERS = 5000
+CHALLENGE_PSNR_TOL = 1.0
 # integer operations per output slot of an expansion beside its A copies:
 # the binary search over a window of 640-768 starts (10 steps of about 4)
 # and the rank
@@ -657,24 +689,34 @@ def view_binning_inputs(params, active, batch, i, sh_degree, pp):
 def kernel_device_ms(fn, kernel: str, repeats: int = REPEATS):
     """Mean device milliseconds of the kernel named ``kernel`` alone, over
     ``repeats`` calls of ``fn`` under torch.profiler (``fn`` also runs its
-    wrapper's torch ops, which time_ms includes and this leaves out).  The
-    script stops if the profiler reports no such kernel: the call's time is
-    no stand-in for the kernel's."""
+    wrapper's torch ops, which time_ms includes and this leaves out).
+
+    The profiler has once returned a window without this kernel's records
+    (1 of 10 whole runs; the kernel ran, its launches counted): such a
+    window is profiled again, up to PROFILE_WINDOWS in all, and each miss
+    is printed with the device records the window did hold.  The script
+    stops if no window reports the kernel: the call's time is no stand-in
+    for the kernel's."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.key]
-    if not us or sum(us) <= 0:
-        fail(f"torch.profiler reported no device time for {kernel}")
-    return sum(us) / repeats / 1e3
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = [e.self_device_time_total for e in device if kernel in e.key]
+        if us and sum(us) > 0:
+            return sum(us) / repeats / 1e3
+        print(f"torch.profiler window {window} of {PROFILE_WINDOWS} held no "
+              f"device time for {kernel}; its device records: "
+              f"{[(e.key[:60], e.count) for e in device]}")
+    fail(f"torch.profiler reported no device time for {kernel} in "
+         f"{PROFILE_WINDOWS} windows")
 
 
 def check_block_model(got, attrs, counts, window: int, step: int,
@@ -2512,6 +2554,153 @@ def phase_parallel_cli(run_b1: dict):
         fail(f"torchrun test PSNR {test} against the Trainer's {want}")
 
 
+def root_bench_keys() -> dict:
+    """{metric: keys in order} of the dicts the root bench.py passes to
+    json.dumps, read from its source (it is not imported: it imports
+    JAX)."""
+    with open(ROOT_BENCH) as f:
+        tree = ast.parse(f.read())
+    assigned = {node.targets[0].id: node.value for node in ast.walk(tree)
+                if isinstance(node, ast.Assign)
+                and isinstance(node.value, ast.Dict)
+                and isinstance(node.targets[0], ast.Name)}
+    out = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and ast.unparse(node.func) == "json.dumps"):
+            d = node.args[0]
+            if isinstance(d, ast.Name):
+                d = assigned[d.id]
+            keys = [k.value for k in d.keys]
+            out[d.values[keys.index("metric")].value] = keys
+    return out
+
+
+@contextlib.contextmanager
+def bench_env(env: dict):
+    """The process environment with every BENCH_* knob unset but ``env``;
+    restored on exit."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+def phase_bench(dev):
+    """Phase 9: python -m litegs_torch.bench's main in process at its
+    defaults in each of BENCH_MODES; each run's stdout is one JSON line
+    with the root bench.py's keys and a finite positive value, and its
+    kernel launches are counted against the run's steps and renders.
+    Returns the launches (forward, backward, window) and the lines."""
+    from litegs_torch import bench
+    keys = root_bench_keys()
+    warm = 1 + BENCH_FRAMES        # frame 0, then every frame once
+    batched = 1 + BENCH_FRAMES // 2 + BENCH_ITERS   # B = 2 steps
+    expected = {   # forwards, backwards, views binned
+        "train": (warm + BENCH_ITERS,) * 3,
+        "render": (warm + 1 + BENCH_ITERS, warm, warm + 1 + BENCH_ITERS),
+        "B=2": (warm + batched, warm + batched, warm + 2 * batched)}
+    launches = np.zeros(3, np.int64)
+    lines = {}
+    for label, env, metric in BENCH_MODES:
+        out, err = io.StringIO(), io.StringIO()
+        zero_path_counts()
+        t0 = time.perf_counter()
+        with bench_env(env), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            bench.main(device=dev)
+        wall = time.perf_counter() - t0
+        launches += read_counts(f"bench {label}", *expected[label])
+        printed = out.getvalue().splitlines()
+        print(f"bench {label} ({wall:.1f} s wall, set-up included): "
+              f"stdout {printed}")
+        for line in err.getvalue().splitlines():
+            print(f"  {line}")
+        if len(printed) != 1:
+            fail(f"bench {label} printed {len(printed)} stdout lines")
+        rec = json.loads(printed[0])
+        if list(rec) != keys[metric] or rec["metric"] != metric:
+            fail(f"bench {label}: keys {list(rec)}, bench.py's "
+                 f"{keys[metric]}")
+        if not (math.isfinite(rec["value"]) and rec["value"] > 0):
+            fail(f"bench {label}: value {rec['value']}")
+        lines[label] = printed[0]
+    return launches, lines
+
+
+def drop_flags(argv: list, flags) -> list:
+    """argv without each of ``flags`` and its value."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in flags:
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+def phase_challenge(dev, run_b1: dict):
+    """Phase 10: challenge_train at its 5,000 iterations on phase 6's
+    COLMAP scene with phase 6's other flags, then challenge_eval on its
+    model; the output JSON's keys, the train time, the test PSNR against
+    phase 6's last, and the launches (forward, backward, window)."""
+    from litegs_torch import challenge_eval, challenge_train
+    model = os.path.join(COLMAP_DIR, "model_challenge")
+    timing = os.path.join(model, "train_time.json")
+    result_json = os.path.join(model, "challenge.json")
+    argv = drop_flags(run_b1["argv"], ("--iterations", "--test_epochs"))
+    scene = argv[argv.index("-s") + 1]
+    n_train = COLMAP_VIEWS - 2
+    launches = np.zeros(3, np.int64)
+    zero_path_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        challenge_train.main(argv + ["-m", model, "--timing_json", timing],
+                             device=dev)
+    wall = time.perf_counter() - t0
+    steps = CHALLENGE_ITERS // n_train * n_train
+    launches += read_path_counts("challenge train", steps, 0)
+    printed = out.getvalue().splitlines()
+    print(f"challenge train: {wall:.1f} s wall, {len(printed)} lines; "
+          f"first and last: {printed[:1] + printed[-3:]}")
+    zero_path_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = challenge_eval.main(["-s", scene, "-m", model, "--timing_json",
+                                   timing, "--output_json", result_json],
+                                  device=dev)
+    eval_s = time.perf_counter() - t0
+    launches += read_path_counts("challenge eval", 0, 2)
+    with open(result_json) as f:
+        saved = json.load(f)
+    want = run_b1["test_psnr"][-1]
+    print(f"challenge eval: {eval_s:.1f} s; {json.dumps(saved)}; "
+          f"{steps / saved.get('train_time_s', math.nan):.2f} it/s over "
+          f"the challenge's wall time (load and export included); test "
+          f"PSNR against phase 6's {want:.3f} after "
+          f"{COLMAP_EPOCHS * n_train} steps: "
+          f"{saved.get('psnr', math.nan) - want:+.3f} dB")
+    if saved != res or list(saved) != ["train_time_s", "scene", "ssim",
+                                       "psnr"]:
+        fail(f"challenge eval wrote {saved}, returned {res}")
+    if not saved["train_time_s"] > 0 or saved["scene"] != scene:
+        fail(f"challenge train's record {saved}")
+    if not saved["psnr"] >= want - CHALLENGE_PSNR_TOL:
+        fail(f"challenge test PSNR {saved['psnr']} more than "
+             f"{CHALLENGE_PSNR_TOL} dB below phase 6's {want}")
+    return launches
+
+
 def main() -> int:
     import torch
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2567,15 +2756,21 @@ def main() -> int:
     par = phase_lpips(dev, prepared, active, batch, SH_DEGREE)
     par += phase_parallel(dev, prepared, active, batch, SH_DEGREE)
     phase_parallel_cli(run_b1)
-    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
     shutil.rmtree(PAR_DIR, ignore_errors=True)
     print(f"evaluation and data-parallel phase {time.perf_counter() - t0:.1f}"
           f" s; launches on its path {par.tolist()}")
-    fwd_launches += colmap["raster_forward"] + int(batched[0]) + int(par[0])
+    t0 = time.perf_counter()
+    entry, bench_lines = phase_bench(dev)
+    entry += phase_challenge(dev, run_b1)
+    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
+    print(f"bench and challenge phases {time.perf_counter() - t0:.1f} s; "
+          f"launches on their path {entry.tolist()}")
+    fwd_launches += (colmap["raster_forward"] + int(batched[0]) + int(par[0])
+                     + int(entry[0]))
     bwd["launches"] += (colmap["raster_backward"] + int(batched[1])
-                        + int(par[1]))
+                        + int(par[1]) + int(entry[1]))
     win_training += (colmap["expand_window_kernel"] + int(batched[2])
-                     + int(par[2]))
+                     + int(par[2]) + int(entry[2]))
     fwd["launches"] = fwd_launches
     # the merged forward is bit-equal to the single views' (checked)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], worst_fwd)
@@ -2594,7 +2789,10 @@ def main() -> int:
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [fwd, bwd, *(
         sg_records[k] for k in SG_RECORDS)]}))
-    print(card_line())
+    card = card_line()
+    for label, line in bench_lines.items():
+        print(f"bench {label} on {card}: {line}")
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

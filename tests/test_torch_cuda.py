@@ -707,6 +707,25 @@ def test_gather_blocks_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_gather_blocks_writes_every_word_on_dirty_memory(cuda_device):
+    """gather_blocks allocates its output with torch.empty: handed a block
+    that the caching allocator last held filled with 0xFFFFFFFF words (a
+    NaN as float32), every case still equals the plain version, so the
+    kernel writes every output word."""
+    for what, attrs, src_lo, offset in gather_cases():
+        attrs = device_rows(attrs, cuda_device, offset)
+        src_lo = torch.from_numpy(src_lo).to(cuda_device)
+        shape = (attrs.shape[0], src_lo.shape[0] * stream_gather.BLK)
+        junk = torch.full(shape, -1, dtype=torch.int32, device=cuda_device)
+        ptr = junk.data_ptr()
+        del junk
+        got = stream_gather.gather_blocks(attrs, src_lo)
+        assert got.data_ptr() == ptr, what   # the dirty block, reused
+        assert torch.equal(got, stream_gather.gather_blocks_plain(
+            attrs, src_lo)), what
+
+
+@pytest.mark.cuda
 def test_stream_routes_give_identical_tables(cuda_device):
     """One view's table with the streaming kernels on (every route) and
     off, and the render's default route."""

@@ -119,16 +119,22 @@ def test_training_entry_points_default_to_cuda():
 
 
 def test_io_entry_points_default_to_cuda(tmp_path):
-    """start, both command-line entry points and the ply loader raise
-    without a card unless the CPU is asked for."""
+    """start, the command-line entry points (training, metrics, the bench
+    and the speed challenge's pair) and the ply loader raise without a
+    card unless the CPU is asked for."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    from litegs_torch import config, example_metrics, example_train, io
+    from litegs_torch import (bench, challenge_eval, challenge_train, config,
+                              example_metrics, example_train, io)
     from litegs_torch.training import start
     args = ["-s", str(tmp_path), "-m", str(tmp_path / "model")]
+    timing = ["--timing_json", str(tmp_path / "t.json")]
     for fn in (lambda: start(*config.get_default_arg()),
                lambda: example_train.main(args),
                lambda: example_metrics.main(args),
+               lambda: bench.main(),
+               lambda: challenge_train.main(args + timing),
+               lambda: challenge_eval.main(args + timing),
                lambda: io.load_ply(str(tmp_path / "missing.ply"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn()
@@ -142,7 +148,8 @@ def test_io_and_pose_modules_import_no_jax():
                 "parallel/densify.py", "parallel/trainer.py",
                 "utils/profiling.py", "full_eval.py",
                 "full_eval_aggressive.py", "scale_curve.py",
-                "print_results.py"):
+                "print_results.py", "bench.py", "challenge_train.py",
+                "challenge_eval.py"):
         roots = set(_imported_roots(ROOT / "litegs_torch" / rel))
         assert not roots & set(FORBIDDEN), rel
 
