@@ -101,7 +101,21 @@ stops the script with a nonzero exit when it fails:
      litegs_torch.challenge_eval on its model: the output JSON's four keys,
      a positive train time, a test PSNR no more than 1 dB below phase 6's,
      every launch counted;
- 11. a JSON line with one record per kernel, the card's name and power
+ 11. convergence checks and ablation sweeps: (a) litegs_torch.
+     synthetic_convergence's main in process with CONVERGENCE_r5.md's
+     command (1.2M-point ground truth, a 150,000-point init densified
+     toward 1,000,000, 10 frames, SH 3, 32x24 tiles) at 840x1296 and cut
+     to 2,000 iterations: its final active count at least 95 % of the
+     target, its final train PSNR 10 dB above epoch 0's, every loss
+     finite, the trajectory, it/s and peak memory printed, every launch
+     counted; (b) ablations_densify's two variants and (c)
+     ablations_culling's three on phase 6's COLMAP scene, each variant a
+     child process checked by its exit code and printed lines (official
+     ADC changes its primitive count; the plain raster path's test PSNR
+     within 0.1 dB of the kernels'; culling off printed beside them); (d)
+     torchrun --nproc_per_node 1 -m litegs_torch.convergence_parallel at
+     48 iterations: exit 0 and four rows;
+ 12. a JSON line with one record per kernel, the card's name and power
      limit as nvidia-smi prints them, and as the last line
      {"ok": true, "device": {...}}.
 
@@ -115,6 +129,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -252,6 +267,25 @@ ROOT_BENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # PSNR may fall below phase 6's 64-step run
 CHALLENGE_ITERS = 5000
 CHALLENGE_PSNR_TOL = 1.0
+# convergence and ablations (phase 11): CONVERGENCE_r5.md's command
+# (densify 150k toward 1M), run at IMG_H x IMG_W instead of its 256x384
+# and cut from 6,000 iterations to CONV_ITERS; its bars (a final active
+# count of CONV_ACTIVE_SHARE of the target, a train PSNR CONV_PSNR_GAIN dB
+# above epoch 0's); the culling ablation's iterations (2 epochs, before
+# densify_from) and its bar between the plain raster path and the kernels;
+# the data-parallel convergence check's iterations, and each child's
+# time limit
+CONV_ARGV = ["--points", "1200000", "--init_points", "150000",
+             "--color_freq", "3.0", "--target", "1000000", "--frames", "10",
+             "--sh_degree", "3", "--tile", "32x24", "--static_caps"]
+CONV_R5_HW, CONV_R5_ITERS = (256, 384), 6000
+CONV_ITERS = 2000
+CONV_ACTIVE_SHARE = 0.95
+CONV_PSNR_GAIN = 10.0
+CULLING_ITERS = 16
+SCRIPT_RASTER_TOL = 0.1
+PAR_CONV_ITERS = 48
+CHILD_TIMEOUT = 600
 # integer operations per output slot of an expansion beside its A copies:
 # the binary search over a window of 640-768 starts (10 steps of about 4)
 # and the rank
@@ -1707,7 +1741,7 @@ def phase_colmap(dev, prepared, active: int):
     """The command line on a COLMAP scene on disk at full width (phase 6);
     returns the path's kernel launches by record name, and the training
     run's argv (less -m), it/s and test PSNRs; the scene stays on disk
-    for phases 7 and 8."""
+    for phases 7 to 11."""
     import torch
     from litegs_torch import config, evaluation, example_metrics
     from litegs_torch import example_train
@@ -2701,6 +2735,213 @@ def phase_challenge(dev, run_b1: dict):
     return launches
 
 
+def flag_value(argv: list, flag: str):
+    return argv[argv.index(flag) + 1]
+
+
+def phase_convergence(dev):
+    """Phase 11a: synthetic_convergence's main in process with
+    CONVERGENCE_r5.md's command at the bench's size, cut to CONV_ITERS
+    iterations; the trajectory, it/s and peak memory; the final active
+    count, the PSNR gain and finite losses against their bars; the
+    launches (forward, backward, window), make_task's ground-truth renders
+    included."""
+    import torch
+    from litegs_torch import synthetic_convergence
+    argv = CONV_ARGV + ["--height", str(IMG_H), "--width", str(IMG_W),
+                        "--iters", str(CONV_ITERS)]
+    frames = int(flag_value(argv, "--frames"))
+    target = int(flag_value(argv, "--target"))
+    steps = CONV_ITERS // frames * frames
+    print(f"convergence: CONVERGENCE_r5.md's command cut: {IMG_H}x{IMG_W} "
+          f"(the bench's size) instead of {CONV_R5_HW[0]}x{CONV_R5_HW[1]}, "
+          f"{CONV_ITERS} iterations instead of {CONV_R5_ITERS}; argv {argv}")
+    zero_path_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        hist = synthetic_convergence.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = np.array(read_counts("convergence", frames + steps, steps,
+                                    frames + steps), np.int64)
+    for line in out.getvalue().splitlines():
+        print(f"  {line}")
+    print("convergence trajectory (epoch, train PSNR dB, active, wall s "
+          "since training began):")
+    for h in hist:
+        if h["epoch"] % 10 == 0 or h is hist[-1]:
+            print(f"  {h['epoch']} {h['psnr']} {h['active']} "
+                  f"{h['seconds']}")
+    train_s = hist[-1]["seconds"]
+    summary = {"wall_s": wall, "train_s": train_s,
+               "its": steps / train_s, "peak_gib": peak,
+               "psnr0": hist[0]["psnr"], "psnr": hist[-1]["psnr"],
+               "active0": hist[0]["active"], "active": hist[-1]["active"]}
+    print(f"convergence: {steps} steps in {train_s} s of training = "
+          f"{summary['its']} it/s ({wall} s wall, scene build included); "
+          f"peak memory {peak} GiB; active {hist[0]['active']} after epoch "
+          f"0 -> {hist[-1]['active']} ({hist[-1]['active'] / target} of "
+          f"{target}); train PSNR {hist[0]['psnr']} -> {hist[-1]['psnr']}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"convergence: a loss is not finite: {hist}")
+    if not hist[-1]["active"] >= CONV_ACTIVE_SHARE * target:
+        fail(f"convergence: {hist[-1]['active']} active, below "
+             f"{CONV_ACTIVE_SHARE} of {target}")
+    if not hist[-1]["psnr"] >= hist[0]["psnr"] + CONV_PSNR_GAIN:
+        fail(f"convergence: train PSNR {hist[-1]['psnr']} not "
+             f"{CONV_PSNR_GAIN} dB above epoch 0's {hist[0]['psnr']}")
+    return launches, summary
+
+
+@contextlib.contextmanager
+def child_output(path: str, seconds: int):
+    """Standard output and error, the children's included, written to
+    ``path``; SIGALRM after ``seconds`` stops the wait (subprocess.run
+    kills its child on the way out)."""
+    def late(*_):
+        raise TimeoutError(f"over {seconds} s")
+
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = os.dup(1), os.dup(2)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+    old = signal.signal(signal.SIGALRM, late)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        for fd, copy in zip((1, 2), saved):
+            os.dup2(copy, fd)
+            os.close(copy)
+
+
+def run_ablation(label: str, module, argv: list, dev) -> dict:
+    """``module.main(argv)`` with its children's output kept; returns
+    {variant: {code, active, test_psnr, log}}, the last two read from
+    start's lines ([epoch E] ... active=N, [epoch E] test PSNR x)."""
+    log = os.path.join(COLMAP_DIR, f"{label}.log")
+    t0 = time.perf_counter()
+    try:
+        with child_output(log, CHILD_TIMEOUT * len(module.VARIANTS)):
+            codes = module.main(argv, device=dev)
+    except TimeoutError as e:
+        fail(f"{label}: {e}")
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    out = {}
+    parts = text.split("=== ")[1:]
+    for part in parts:
+        name, body = part.split(" ===\n", 1)
+        active = [int(m) for m in re.findall(
+            r"\] loss=\S+ psnr=\S+ active=(\d+)", body)]
+        test = [float(m) for m in re.findall(r"\] test PSNR (\S+)", body)]
+        out[name] = {"code": codes.get(name), "active": active,
+                     "test_psnr": test, "log": body}
+        print(f"{label} {name}: exit {codes.get(name)}, active per epoch "
+              f"{active}, test PSNR {test}")
+    print(f"{label}: {wall:.1f} s wall (process starts and kernel loads "
+          f"included); children's output in {log}")
+    if list(out) != list(module.VARIANTS) or any(
+            r["code"] != 0 for r in out.values()):
+        fail(f"{label}: exit codes {codes}:\n{text[-4000:]}")
+    return out
+
+
+def phase_ablations(dev, run_b1: dict):
+    """Phase 11b-c: ablations_densify on phase 6's COLMAP scene at phase
+    6's iterations and densify window (each variant its own interval),
+    test PSNR at epochs 3 and 7; ablations_culling on the same scene at
+    CULLING_ITERS iterations (no variant densifies), test PSNR at the last
+    epoch.  The variants train in child processes, so they are checked by
+    exit codes and their printed lines, not by launch counts."""
+    import torch
+    from litegs_torch import ablations_culling, ablations_densify
+    torch.cuda.empty_cache()        # the card's memory to the children
+    argv = drop_flags(run_b1["argv"], ("--densification_interval",))
+    dens = run_ablation("ablations_densify", ablations_densify, argv + [
+        "-m", os.path.join(COLMAP_DIR, "ablation_densify")], dev)
+    print(f"densify ablation: test PSNR tamings "
+          f"{dens['tamings']['test_psnr']}, official_adc "
+          f"{dens['official_adc']['test_psnr']}; final primitives "
+          f"{dens['tamings']['active'][-1:]} / "
+          f"{dens['official_adc']['active'][-1:]}")
+    if len(set(dens["official_adc"]["active"])) < 2 or len(
+            dens["official_adc"]["test_psnr"]) != 2:
+        fail(f"densify ablation: official_adc did not densify or test: "
+             f"{dens['official_adc']['log'][-3000:]}")
+    scene = flag_value(run_b1["argv"], "-s")
+    last = CULLING_ITERS // (COLMAP_VIEWS - 2) - 1
+    cull = run_ablation("ablations_culling", ablations_culling, [
+        "-s", scene, "-m", os.path.join(COLMAP_DIR, "ablation_culling"),
+        "--iterations", str(CULLING_ITERS), "--sh_degree", str(SH_DEGREE),
+        "--test_epochs", str(last)], dev)
+    psnr = {k: (v["test_psnr"] or [math.nan])[-1] for k, v in cull.items()}
+    gap = psnr["script_raster"] - psnr["clustered"]
+    print(f"culling ablation: test PSNR {psnr}; script_raster - clustered "
+          f"{gap:+.3f} dB (bar {SCRIPT_RASTER_TOL}); no_culling - clustered "
+          f"{psnr['no_culling'] - psnr['clustered']:+.3f} dB (not barred)")
+    if not abs(gap) <= SCRIPT_RASTER_TOL:
+        fail(f"culling ablation: script_raster's test PSNR "
+             f"{psnr['script_raster']} against clustered's "
+             f"{psnr['clustered']}")
+    return {"densify": {k: (v["test_psnr"], v["active"][-1:])
+                        for k, v in dens.items()}, "culling": psnr}
+
+
+def phase_convergence_parallel():
+    """Phase 11d: torchrun --nproc_per_node 1 python -m
+    litegs_torch.convergence_parallel at PAR_CONV_ITERS iterations, its
+    table written under build/; at D = 1 the arms coincide, so this shows
+    only that the entry point runs on the card: exit 0 and four rows."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    table = os.path.join(COLMAP_DIR, "convergence_parallel.md")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+           "--master_port", str(port), "-m",
+           "litegs_torch.convergence_parallel", "--output", table]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            env={**os.environ,
+                                 "CONV_ITERS": str(PAR_CONV_ITERS)},
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        stdout, stderr = proc.communicate(timeout=CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"torchrun convergence_parallel took over {CHILD_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(table):
+        fail(f"torchrun convergence_parallel exited {proc.returncode}:\n"
+             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    with open(table) as f:
+        rows = re.findall(r"^\| (sequential|parallel_\w+) \|.*$", f.read(),
+                          re.M)
+    print(f"torchrun --nproc_per_node 1 convergence_parallel "
+          f"(CONV_ITERS={PAR_CONV_ITERS}): {wall:.1f} s wall; "
+          f"{stdout.strip().splitlines()}")
+    if rows != ["sequential", "parallel_equal_images_lr1",
+                "parallel_equal_images_lrsqrtD",
+                "parallel_equal_updates_lr1"]:
+        fail(f"convergence_parallel's table has rows {rows}")
+
+
 def main() -> int:
     import torch
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2762,15 +3003,26 @@ def main() -> int:
     t0 = time.perf_counter()
     entry, bench_lines = phase_bench(dev)
     entry += phase_challenge(dev, run_b1)
-    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
     print(f"bench and challenge phases {time.perf_counter() - t0:.1f} s; "
           f"launches on their path {entry.tolist()}")
+    t0 = time.perf_counter()
+    conv, conv_summary = phase_convergence(dev)
+    t1 = time.perf_counter()
+    ablations = phase_ablations(dev, run_b1)
+    t2 = time.perf_counter()
+    phase_convergence_parallel()
+    shutil.rmtree(COLMAP_DIR, ignore_errors=True)
+    print(f"convergence and ablation phase {time.perf_counter() - t0:.1f} s "
+          f"(11a {t1 - t0:.1f}, 11b-c {t2 - t1:.1f}, 11d "
+          f"{time.perf_counter() - t2:.1f}); launches on its in-process "
+          f"path {conv.tolist()}")
+    path = entry + conv
     fwd_launches += (colmap["raster_forward"] + int(batched[0]) + int(par[0])
-                     + int(entry[0]))
+                     + int(path[0]))
     bwd["launches"] += (colmap["raster_backward"] + int(batched[1])
-                        + int(par[1]) + int(entry[1]))
+                        + int(par[1]) + int(path[1]))
     win_training += (colmap["expand_window_kernel"] + int(batched[2])
-                     + int(par[2]) + int(entry[2]))
+                     + int(par[2]) + int(path[2]))
     fwd["launches"] = fwd_launches
     # the merged forward is bit-equal to the single views' (checked)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], worst_fwd)
@@ -2792,6 +3044,8 @@ def main() -> int:
     card = card_line()
     for label, line in bench_lines.items():
         print(f"bench {label} on {card}: {line}")
+    print(f"convergence on {card}: {json.dumps(conv_summary)}; ablations "
+          f"{json.dumps(ablations)}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

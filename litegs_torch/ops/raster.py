@@ -5,7 +5,9 @@ plain PyTorch version (``litegs_tpu/ops/raster.py``).
 ``raster_cuda.raster_forward`` and whose backward is
 ``raster_cuda.raster_backward``: the hand-written kernels on CUDA tensors,
 their plain versions on CPU tensors.  ``backend='torch'`` is autograd
-through ``raster_plain.rasterize_reference`` on either device (the oracle).
+through ``raster_plain.rasterize_reference`` on either device (the oracle),
+checkpointed by groups of whole tiles on large tables
+(:func:`rasterize_plain`).
 
 Densification statistics ride the same backward-kernel run as the
 parameter gradients: pass ``stats_sink=zero_stats_sink(M)`` and the sink's
@@ -18,10 +20,17 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils import resolve_device
 from . import raster_cuda, raster_plain
 from .binning import BinningResult
+
+
+# (entry, pixel) pairs of a table above which the 'torch' backend
+# rasterizes groups of whole tiles of at most this many pairs, each under
+# checkpointing (rasterize_plain)
+PLAIN_GROUP_PAIRS = 1 << 25
 
 
 class RasterStats(NamedTuple):
@@ -126,11 +135,9 @@ def rasterize(mean_pix, inv_cov, color, opacity, table: BinningResult,
         if stats_sink is not None:
             raise ValueError("stats_sink needs the 'cuda' backend; the "
                              "'torch' backend takes raster_stats")
-        out = raster_plain.rasterize_reference(
-            mean_pix, inv_cov, color, opacity, table.sorted_point,
-            table.sorted_tile, table.entry_valid, table.tile_start,
-            tiles_total, tiles_x, tile_h, tile_w, tiles_y)
-        return out.tiles_color, out.tiles_trans, None
+        return (*rasterize_plain(mean_pix, inv_cov, color, opacity, table,
+                                 tiles_total, tiles_x, tile_h, tile_w,
+                                 tiles_y), None)
     raster_cuda.check_table(table.sorted_point, table.tile_start,
                             table.tile_count, color.shape[1])
     sink = () if stats_sink is None else tuple(stats_sink)
@@ -138,6 +145,47 @@ def rasterize(mean_pix, inv_cov, color, opacity, table: BinningResult,
         table, (tiles_total, tiles_x, tile_h, tile_w, img_h, img_w, tiles_y),
         mean_pix, inv_cov, color, opacity, *sink)
     return tiles_color, tiles_trans, None
+
+
+def rasterize_plain(mean_pix, inv_cov, color, opacity, table: BinningResult,
+                    tiles_total: int, tiles_x: int, tile_h: int, tile_w: int,
+                    tiles_y: int = 0, max_entries: Optional[int] = None):
+    """The ``'torch'`` backend: autograd through
+    ``raster_plain.rasterize_reference``; returns (tiles_color,
+    tiles_trans).
+
+    Its autograd graph holds a dozen [entries, tile pixels] tensors (over
+    60 GB at 840x1296 with 200,000 fresh points), so a table of more than
+    ``max_entries`` (default: ``PLAIN_GROUP_PAIRS`` pairs) entries is
+    rasterized in groups of whole tiles (``raster_cuda._tile_groups``),
+    each under activation checkpointing: between the forward and the
+    backward only each group's outputs are kept, and the backward rebuilds
+    one group's graph at a time.  Every tile is computed from its own
+    entries alone, so a group's tiles equal the whole table's.
+    """
+    def run(sorted_point, sorted_tile, entry_valid, tile_start):
+        out = raster_plain.rasterize_reference(
+            mean_pix, inv_cov, color, opacity, sorted_point, sorted_tile,
+            entry_valid, tile_start, tiles_total, tiles_x, tile_h, tile_w,
+            tiles_y)
+        return out.tiles_color, out.tiles_trans
+
+    npix = tile_h * tile_w
+    limit = max_entries or max(PLAIN_GROUP_PAIRS // npix, 1)
+    if table.sorted_point.shape[0] <= limit:
+        return run(table.sorted_point, table.sorted_tile, table.entry_valid,
+                   table.tile_start)
+    tiles_color = color.new_zeros((tiles_total, color.shape[0], npix))
+    tiles_trans = color.new_ones((tiles_total, npix))
+    for tiles, entries, sub_tile, sub_start in raster_cuda._tile_groups(
+            table.tile_start, table.tile_count, limit, tiles_x * tiles_y):
+        valid = torch.ones(len(entries), dtype=torch.bool,
+                           device=color.device)
+        col, trans = checkpoint(run, table.sorted_point[entries], sub_tile,
+                                valid, sub_start, use_reentrant=False)
+        tiles_color = tiles_color.index_copy(0, tiles, col[tiles])
+        tiles_trans = tiles_trans.index_copy(0, tiles, trans[tiles])
+    return tiles_color, tiles_trans
 
 
 def raster_stats(mean_pix, inv_cov, color, opacity, table: BinningResult,

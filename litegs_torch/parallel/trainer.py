@@ -60,8 +60,9 @@ class ParallelTrainer:
     data: CameraBatch
     spatial_lr_scale: float
     # learning-rate multiplier for the D-views-per-update semantics; JAX
-    # measured that at equal optimizer updates the mean-gradient step needs
-    # none (CONVERGENCE_r2.md), hence 1.0
+    # (CONVERGENCE_r2.md) and the port (CONVERGENCE_TORCH.md) measured
+    # that at equal optimizer updates the mean-gradient step needs none,
+    # and that sqrt(D) loses at equal images, hence 1.0
     lr_scale: float = 1.0
     seed: int = 0
     device: str = "cuda"

@@ -145,6 +145,29 @@ def test_plain_backward_matches_autograd(name):
 
 
 @pytest.mark.parametrize("name", list(CASES))
+def test_torch_backend_groups_match_whole_table(name):
+    """The 'torch' backend on the table split into checkpointed groups of
+    whole tiles (``rasterize_plain(max_entries=37)``, the path of tables
+    over ``PLAIN_GROUP_PAIRS`` pairs) gives the whole table's tiles and,
+    through the checkpoints, its gradients."""
+    s = Scene(name)
+    runs = []
+    for max_entries in (None, 37):
+        args = [a.clone().requires_grad_(True) for a in s.targs]
+        col, trans = traster.rasterize_plain(*args, s.tt, *s.geom,
+                                             max_entries=max_entries)
+        ((col * T(s.dcol)).sum() + (trans * T(s.dtrans)).sum()).backward()
+        runs.append((col.detach(), trans.detach(), [a.grad for a in args]))
+    (col, trans, grads), (gcol, gtrans, ggrads) = runs
+    np.testing.assert_allclose(gcol.numpy(), col.numpy(), atol=1e-6)
+    np.testing.assert_allclose(gtrans.numpy(), trans.numpy(), atol=1e-6)
+    for field, a, b in zip(("d_mean", "d_inv_cov", "d_color", "d_opacity"),
+                           grads, ggrads):
+        scaled_close(b, a, 1e-6, field)
+    assert name.startswith("sparse") or s.tt.sorted_point.shape[0] > 37
+
+
+@pytest.mark.parametrize("name", list(CASES))
 def test_rasterize_function_matches_jax_grad(name):
     s = Scene(name)
     g_j = jax.grad(s.jax_loss("jnp"), argnums=(0, 1, 2, 3))(*s.jargs)

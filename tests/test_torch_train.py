@@ -222,14 +222,23 @@ def task():
     return jdata, p0, m0, v0
 
 
-@pytest.mark.parametrize("collect, reg_weight, vis_cap", [
-    pytest.param(False, 0.0, 1024, id="False"),
-    pytest.param(True, 0.0, 1024, id="True"),
-    pytest.param(False, 0.1, 512, id="reg_weight"),
+# the loss's rtol is 1e-6 but with enable_transmitance: the added mean of
+# the final transmittance rounds differently in float32 in the two
+# packages, measured 1.15e-6 relative on this fixture
+@pytest.mark.parametrize("collect, reg_weight, vis_cap, pipeline, loss_rtol", [
+    pytest.param(False, 0.0, 1024, {}, 1e-6, id="False"),
+    pytest.param(True, 0.0, 1024, {}, 1e-6, id="True"),
+    pytest.param(False, 0.1, 512, {}, 1e-6, id="reg_weight"),
+    pytest.param(False, 0.0, 1024, dict(disable_culling=True,
+                                        enable_transmitance=True), 2e-6,
+                 id="disable_culling_transmitance"),
 ])
-def test_train_step_matches_jax(task, collect, reg_weight, vis_cap):
+def test_train_step_matches_jax(task, collect, reg_weight, vis_cap, pipeline,
+                                loss_rtol):
     """One step from an equal state; the ``reg_weight`` case adds the scale
-    regulariser, ``reg_weight * mean(scale ** 2)``.
+    regulariser, ``reg_weight * mean(scale ** 2)``; the last case keeps
+    every chunk (``disable_culling``, the culling ablation's
+    ``no_culling``) and adds the transmittance term to the loss.
 
     The port takes that mean over the view's visible primitives, as the
     reference's compacted tensors do.  JAX takes it over all
@@ -251,7 +260,7 @@ def test_train_step_matches_jax(task, collect, reg_weight, vis_cap):
     jparams = jgauss.GaussianParams(**{k: jnp.asarray(v)
                                        for k, v in p0.items()})
     jstep = jtr.make_train_step(
-        lp, op, jcfg.PipelineParams(raster_backend="jnp"),
+        lp, op, jcfg.PipelineParams(raster_backend="jnp", **pipeline),
         jcfg.CapacityParams(cap, vis_cap, 8192, 32768), 48, 64, 4.4, 1,
         collect)
     jo, je = jtr.masked_chunk_aabb(jparams, active, 128)
@@ -263,7 +272,7 @@ def test_train_step_matches_jax(task, collect, reg_weight, vis_cap):
         None, jnp.int32(frame))
 
     tparams = tgauss.params_from_numpy(p0, device=CPU)
-    tstep = ttr.make_train_step(lp, op, tcfg.PipelineParams(),
+    tstep = ttr.make_train_step(lp, op, tcfg.PipelineParams(**pipeline),
                                 tcfg.CapacityParams(cap), 48, 64, 4.4, 1,
                                 collect)
     with torch.no_grad():
@@ -276,7 +285,7 @@ def test_train_step_matches_jax(task, collect, reg_weight, vis_cap):
 
     assert ts.step == int(js.step) == step0 + 1
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
-                               rtol=1e-6)
+                               rtol=loss_rtol)
     np.testing.assert_allclose(float(tm["psnr"]), float(jm["psnr"]),
                                rtol=1e-6)
     np.testing.assert_array_equal(tm["sizes"].numpy(),
