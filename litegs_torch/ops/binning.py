@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from .. import config
+from ..utils import profiling
 from . import stream_gather
 
 # float -> int32 conversions saturate here first: torch's cast of an
@@ -192,6 +193,8 @@ def expand_by_counts(counts):
     m = counts.shape[0]
     dev = counts.device
     cum = torch.cumsum(counts, 0)
+    if m:
+        profiling.host_wait("bin.total")
     total = int(cum[-1]) if m else 0
     owner = torch.repeat_interleave(
         torch.arange(m, dtype=torch.int32, device=dev), counts,
@@ -247,6 +250,7 @@ def _check_windows(*oks):
     """The streaming kernels' window check.  The table's buffers are exact,
     so there is nothing to retry with: a window that did not hold a step's
     owners is an error.  One host read."""
+    profiling.host_wait("bin.windows")
     if not bool(torch.stack(oks).all()):
         raise RuntimeError(
             "streaming binning: an expansion step's owners span more items "
@@ -256,6 +260,7 @@ def _check_windows(*oks):
             "the streaming kernels")
 
 
+@profiling.spanned("bin")
 def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
                      img_h: int, img_w: int, tile_h: int, tile_w: int,
                      stream=None) -> BinningResult:
@@ -362,6 +367,9 @@ def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
     # stable sort by tile keeps each tile's entries in depth order
     sorted_tile, order = torch.sort(ent_tile, stable=True)
     sorted_point = ent_pt[order]
+    # CUDA's bincount reads its input's min and max to the host
+    if num_entries:
+        profiling.host_wait("bin.bincount", 4)
     tile_count = torch.bincount(sorted_tile, minlength=tiles_total)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
     point_counts = torch.bincount(ent_pt, minlength=m)

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..utils import resolve_device
+from ..utils import profiling, resolve_device
 from . import raster_cuda, raster_plain
 from .binning import BinningResult
 
@@ -89,17 +89,19 @@ class _Rasterize(torch.autograd.Function):
     def backward(ctx, d_tiles_color, d_tiles_trans):
         *args, tiles_color, tiles_trans = ctx.saved_tensors
         tiles_total, tiles_x, tile_h, tile_w = ctx.geom[:4]
-        g = raster_cuda.raster_backward(
-            *args, *ctx.tab, tiles_x, tile_h, tile_w, tiles_color,
-            tiles_trans, d_tiles_color.contiguous(),
-            d_tiles_trans.contiguous(), with_stats=ctx.with_stats,
-            table_checked=True, tiles_y=ctx.geom[6])
+        with profiling.span("raster_bwd"):
+            g = raster_cuda.raster_backward(
+                *args, *ctx.tab, tiles_x, tile_h, tile_w, tiles_color,
+                tiles_trans, d_tiles_color.contiguous(),
+                d_tiles_trans.contiguous(), with_stats=ctx.with_stats,
+                table_checked=True, tiles_y=ctx.geom[6])
         grads = (None, None, g.d_mean, g.d_inv_cov, g.d_color, g.d_opacity)
         if ctx.with_stats:
             grads += tuple(_stats_from(g, ctx.geom))
         return grads
 
 
+@profiling.spanned("raster_fwd")
 def rasterize(mean_pix, inv_cov, color, opacity, table: BinningResult,
               tiles_total: int, tiles_x: int, tile_h: int, tile_w: int,
               backend: str = "cuda",

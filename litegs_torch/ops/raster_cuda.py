@@ -45,6 +45,7 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from . import _kernels, raster_plain
 from .raster_plain import (PointGrads, raster_backward_reference,
                            rasterize_reference)
@@ -100,6 +101,7 @@ def check_table(sorted_point, tile_start, tile_count, m: int):
     index with them unchecked.  One host wait."""
     if tile_start.numel() == 0:
         return
+    profiling.host_wait("raster.check_table")
     e = sorted_point.numel()
     vals = [torch.minimum(tile_start.min(), tile_count.min()).long(),
             (tile_start.long() + tile_count.long()).max()]
@@ -338,15 +340,18 @@ def _tile_groups(tile_start, tile_count, max_entries: int,
     tiles_total = tile_start.shape[0]
     counts = tile_count.long()
     starts = tile_start.long()
+    profiling.host_wait("raster.groups")
     nonempty = torch.nonzero(counts > 0).flatten()
     bounds = [0, nonempty.numel()]
     if view_tiles:
         edges = torch.arange(view_tiles, tiles_total, view_tiles, device=dev)
+        profiling.host_wait("raster.groups")
         bounds[1:1] = torch.searchsorted(nonempty, edges).tolist()
     for first, end in zip(bounds[:-1], bounds[1:]):
         view = nonempty[first:end]
         if view.numel() == 0:
             continue
+        profiling.host_wait("raster.groups")
         cum = torch.cumsum(counts[view], 0).cpu()
         cuts = [0]
         while cuts[-1] < len(cum):
@@ -358,6 +363,8 @@ def _tile_groups(tile_start, tile_count, max_entries: int,
             tiles = view[lo:hi]
             cnt = counts[tiles]
             seg_start = torch.cumsum(cnt, 0) - cnt
+            # the sum and three repeat_interleave without output_size
+            profiling.host_wait("raster.groups", 4)
             n = int(cnt.sum())
             rank = torch.arange(n, device=dev) - torch.repeat_interleave(
                 seg_start, cnt)

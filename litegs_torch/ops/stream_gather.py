@@ -50,6 +50,7 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from . import _kernels
 
 BLK = 128
@@ -144,6 +145,7 @@ def _prefix(attrs, counts, out_len):
     # no items expand to no live slot
     total = cum[-1] if attrs.shape[1] else cum.new_zeros(())
     if out_len is None:
+        profiling.host_wait("bin.total")
         out_len = int(total)
         if out_len >= 2 ** 31:
             raise ValueError(f"{out_len} slots do not fit int32 offsets")

@@ -47,7 +47,7 @@ from ..training.optimizer import LearningRates, sparse_adam_step
 from ..training.trainer import (CameraBatch, TrainState, view_loss,
                                 view_raster_stats)
 from ..utils import resolve_device
-from ..utils.profiling import annotate
+from ..utils import profiling
 
 COLLECTIVE_CALLS: collections.Counter = collections.Counter()
 
@@ -112,7 +112,7 @@ def collective(kind: str, tensor: torch.Tensor,
             return tensor
         return out.copy_(tensor)
     COLLECTIVE_CALLS[kind] += 1
-    with annotate(f"collective:{kind}"):
+    with profiling.span(f"collective:{kind}", tensor.device):
         if kind == "all_reduce":
             dist.all_reduce(tensor, op=op)
             return tensor
@@ -210,6 +210,8 @@ def make_parallel_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
         params = state.params
         dev = params.xyz.device
         live = float(weight) > 0.0
+        # pageable copies to the device: host waits on the card
+        profiling.host_wait("dp.weight")
         w = torch.tensor(float(weight), device=dev)
         params.zero_grad(set_to_none=True)
         culled = render_preprocess(params, chunk_origin, chunk_extend,
@@ -256,6 +258,7 @@ def make_parallel_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
             else:
                 stats = add_packed(stats, collective("all_reduce", packed))
 
+        profiling.host_wait("dp.sizes")
         metrics = {"loss": sums[1] / wsum, "psnr": sums[2] / wsum,
                    "sizes": all_gather(out.sizes.to(dev))}
         return state._replace(step=state.step + 1), stats, metrics

@@ -19,6 +19,7 @@ from ..ops import raster as raster_ops
 from ..scene import cluster
 from ..scene.gaussians import GaussianModel
 from ..utils import math as um
+from ..utils import profiling
 from ..utils import sh as sh_utils
 
 
@@ -58,6 +59,7 @@ class RenderedView(NamedTuple):
     aux: RenderAux
 
 
+@profiling.spanned("preprocess")
 def render_preprocess(params: GaussianModel, chunk_origin, chunk_extend,
                       frustumplane, cam_center, actived_sh_degree: int,
                       pp: PipelineParams) -> CulledGaussians:
@@ -95,6 +97,7 @@ def render_preprocess(params: GaussianModel, chunk_origin, chunk_extend,
                            num_visible_chunks=num_vis, overflow=False)
 
 
+@profiling.spanned("project")
 def _project(culled: CulledGaussians, view_matrix, proj_matrix,
              img_h: int, img_w: int):
     xyz_h = projection.homogeneous(culled.xyz)

@@ -12,6 +12,7 @@ import math
 import torch
 
 from ..ops import projection
+from ..utils import profiling
 
 # sqrt(2 ln 255): ellipse radius (in stddevs) where alpha falls to 1/255 for
 # a fully opaque gaussian (reference cluster.py:37).
@@ -41,6 +42,7 @@ def visible_chunk_ids(visibility):
 
     Returns (chunk_ids [V] int64, num_visible int).
     """
+    profiling.host_wait("cull.nonzero")
     ids = torch.nonzero(visibility).flatten()
     return ids, ids.shape[0]
 
@@ -58,5 +60,7 @@ def gather_chunks(arr, chunk_ids, chunk_size: int = 128):
 def scatter_chunk_mask(chunk_ids, num_visible: int, num_chunks: int):
     """Boolean [num_chunks] mask marking the first ``num_visible`` ids."""
     mask = torch.zeros(num_chunks, dtype=torch.bool, device=chunk_ids.device)
+    # the True is copied from the host: a host wait on the card
+    profiling.host_wait("adam.chunk_mask")
     mask[chunk_ids[:num_visible]] = True
     return mask

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..scene.gaussians import FIELDS, GaussianModel
+from ..utils import profiling
 
 BETA1, BETA2 = 0.9, 0.999
 EPS = 1e-15
@@ -91,6 +92,8 @@ def sparse_adam_step(params: GaussianModel, grads: dict, state: AdamState,
         g = grads.get(name)
         if g is None:
             g = torch.zeros_like(p)
+        # a pageable copy to the device: a host wait on the card
+        profiling.host_wait("adam.lr_copy")
         lr = torch.tensor(getattr(lrs, name), dtype=p.dtype, device=p.device)
         m_new = BETA1 * m + (1 - BETA1) * g
         v_new = BETA2 * v + (1 - BETA2) * g * g

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import resolve_device
+from ..utils import profiling, resolve_device
 
 
 class StatsState(NamedTuple):
@@ -56,9 +56,12 @@ def update_stats(stats: StatsState, chunk_ids, valid_mask,
       primitive_visible: [Mv] bool from binning.
       raster_stats: ops.raster.RasterStats over the compacted axis.
     """
+    # each boolean mask's index is a nonzero: a host wait on the card
+    profiling.host_wait("stats.mask")
     idx = global_indices(chunk_ids, chunk_size)[valid_mask]
 
     def add(acc, val):
+        profiling.host_wait("stats.mask")
         return acc.index_add(0, idx, val[valid_mask].to(acc.dtype))
 
     rs = raster_stats

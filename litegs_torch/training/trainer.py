@@ -36,7 +36,7 @@ from ..render import render, render_batch, render_preprocess
 from ..scene import cluster
 from ..scene.gaussians import (GaussianModel, create_gaussians, pad_params,
                                pad_to_chunk)
-from ..utils import resolve_device
+from ..utils import profiling, resolve_device
 from . import densify, statistics
 from .optimizer import AdamState, LearningRates, init_adam, sparse_adam_step
 
@@ -58,6 +58,12 @@ class CameraBatch(NamedTuple):
     images: torch.Tensor    # [F, 3, H, W] float32 in [0, 1]
 
 
+def _params_device(params: GaussianModel, *args, **kwargs) -> torch.device:
+    """The device of a span whose call's first argument is the model."""
+    return params.xyz.device
+
+
+@profiling.spanned("aabb", device=_params_device)
 def masked_chunk_aabb(params: GaussianModel, active_count: int,
                       chunk_size: int):
     """Per-chunk AABBs with inactive chunks pushed out of every frustum."""
@@ -73,6 +79,7 @@ def masked_chunk_aabb(params: GaussianModel, active_count: int,
     return origin, extend
 
 
+@profiling.spanned("loss")
 def view_loss(op: cfg.OptimizationParams, pp: cfg.PipelineParams, img,
               gt_image, scale, transmitance):
     """One view's training loss: fused L1+SSIM, the optional scale
@@ -85,6 +92,7 @@ def view_loss(op: cfg.OptimizationParams, pp: cfg.PipelineParams, img,
     return loss
 
 
+@profiling.spanned("adam")
 def _adam_update(state: TrainState, culled_views,
                  op: cfg.OptimizationParams, spatial_lr_scale: float,
                  chunk_size: int):
@@ -160,6 +168,8 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
     chunk_size = pp.cluster_size
     use_sink = collect_stats and pp.raster_backend == "cuda"
 
+    @profiling.spanned("step", device=lambda state, *a, **k:
+                       state.params.xyz.device)
     def step(state: TrainState, stats: statistics.StatsState,
              chunk_origin, chunk_extend, view, proj, planes, center,
              gt_image, pose: Optional[pose_ops.PoseState] = None,
@@ -184,7 +194,8 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
             aux.tiles_trans.retain_grad()
         loss = view_loss(op, pp, out.img, gt_image, culled.scale,
                          out.transmitance)
-        loss.backward()
+        with profiling.span("backward"):
+            loss.backward()
         _adam_update(state, [culled], op, spatial_lr_scale, chunk_size)
 
         if collect_stats:
@@ -287,6 +298,7 @@ def make_eval_render(pp: cfg.PipelineParams, img_h: int, img_w: int,
     """fn(params, active_count, view, proj, planes, center) -> (img,
     overflow), rendering one view without autograd."""
     @torch.no_grad()
+    @profiling.spanned("eval", device=_params_device)
     def eval_render(params, active_count, view, proj, planes, center):
         chunk_origin, chunk_extend = masked_chunk_aabb(
             params, active_count, pp.cluster_size)
@@ -413,6 +425,7 @@ class Trainer:
         d = self.data
         pending = []
         for s in range(0, cut, bv):
+            profiling.host_wait("batch.frame_ids")
             sel = torch.tensor(ids[s:s + bv], device=self.device)
             state, stats, metrics = self._get_batch_step(
                 sh_deg, collect, bv)(
@@ -425,6 +438,7 @@ class Trainer:
                 state, stats, origin, extend, d.view[i], d.proj[i],
                 d.planes[i], d.center[i], d.images[i])
             pending.append(metrics)
+        profiling.host_wait("epoch.readback")
         got = torch.stack([torch.stack([m["loss"], m["psnr"]])
                            for m in pending]).cpu().numpy()
         return state, stats, {"loss": float(np.mean(got[:, 0])),
@@ -464,9 +478,11 @@ class Trainer:
                 state, stats, self.pose_state, metrics = step_fn(
                     *args, self.pose_state, i)
             pending.append(metrics)
+        profiling.host_wait("epoch.readback")
         got = torch.stack([torch.stack([m["loss"], m["psnr"]])
                            for m in pending]).cpu().numpy()
         if collect:
+            profiling.host_wait("epoch.tile_blend")
             self.tile_blend_max = torch.stack(
                 [m["tile_count"] for m in pending]).amax(dim=0).cpu().numpy()
         return state, stats, {"loss": float(np.mean(got[:, 0])),

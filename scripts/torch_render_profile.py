@@ -1,19 +1,24 @@
 """Where one view's render time goes in litegs_torch, on one CUDA card.
 
-    python3 scripts/torch_render_profile.py
+    python3 scripts/torch_render_profile.py [--trace DIR]
 
 The scene of chip_smoke.py's serving phase (1,000,000 gaussians, SH 3,
-840x1296, 8x16 tiles).  Prints, for view 0:
-  * each stage of the render path timed alone with CUDA events (median of
-    5 after a warm-up), beside the whole render; binning is timed with the
-    streaming expansion kernels on (the default) and off, in the order
-    on, off, off, on;
+840x1296, 8x16 tiles).  Prints:
+  * the program's own spans over FRAMES renders of view 0 under
+    ``profiling.recording()`` (no profiler): per stage of the eval render
+    (``aabb``, ``preprocess``, ``project``, ``bin``, ``raster_fwd`` and the
+    root's remainder ``other``) its device and host self time a frame, and
+    the host waits a frame by site;
+  * binning alone with the streaming expansion kernels on (the default)
+    and off, in the order on, off, off, on (CUDA events, median of 5);
   * the torch.profiler top operators by device time over 5 renders, the
     device's busy share of that window's wall time, and the number of
-    device kernels and copies per render.
+    device kernels and copies per render; the timeline and the spans are
+    written to DIR (``profiling.trace``: trace.json, spans.json).
 """
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -26,14 +31,31 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 from litegs_torch import config, evaluation  # noqa: E402
 from litegs_torch.data import synthetic  # noqa: E402
-from litegs_torch.ops import binning, projection, raster  # noqa: E402
+from litegs_torch.ops import binning  # noqa: E402
 from litegs_torch.render import _project, render_preprocess  # noqa: E402
 from litegs_torch.training.trainer import (  # noqa: E402
     camera_batch_from_frames, make_eval_render, masked_chunk_aabb)
-from litegs_torch.utils import math as um  # noqa: E402
+from litegs_torch.utils import profiling  # noqa: E402
+
+FRAMES = 20      # renders the span table is taken over
 
 
-def main() -> int:
+def print_stages(table: dict, frames: int):
+    """The recorder's stage table, a frame."""
+    print(f"{'stage':12s} {'device ms':>10s} {'host ms':>10s}  host waits")
+    for name, s in table["stages"].items():
+        waits = " ".join(f"{k}={v / frames:g}"
+                         for k, v in sorted(s["waits"].items()))
+        print(f"{name:12s} {s['device_ms'] / frames:10.3f} "
+              f"{s['host_ms'] / frames:10.3f}  {waits}")
+    print(f"{'eval':12s} {table['device_ms'] / frames:10.3f} "
+          f"{table['host_ms'] / frames:10.3f}  (the root: the stages' sum)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default="build/render_profile")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -49,54 +71,39 @@ def main() -> int:
     view, proj, planes, center = (batch.view[0], batch.proj[0],
                                   batch.planes[0], batch.center[0])
     tile_h, tile_w = pp.tile_size
-    tiles_x, tiles_y = -(-w // tile_w), -(-h // tile_h)
     fn = make_eval_render(pp, h, w, sh)
 
-    with torch.no_grad():
-        st = {}
-        st["chunk_aabb"] = lambda: masked_chunk_aabb(params, active,
-                                                     pp.cluster_size)
-        origin, extend = st["chunk_aabb"]()
-        st["cull+gather+sh"] = lambda: render_preprocess(
-            params, origin, extend, planes, center, sh, pp)
-        culled = st["cull+gather+sh"]()
-        st["projection"] = lambda: _project(culled, view, proj, h, w)
-        view_pos, ndc, inv_cov = st["projection"]()
-        for name, stream in (("binning", True), ("binning stream off", False),
-                             ("binning stream off (2)", False),
-                             ("binning (2)", True)):
-            st[name] = lambda stream=stream: binning.build_tile_table(
-                ndc, view_pos[2], inv_cov, culled.opacity, culled.valid, h,
-                w, tile_h, tile_w, stream=stream)
-        table = st["binning"]()
-        mean_pix = projection.ndc_to_pixel(ndc, h, w)
-        st["raster kernel"] = lambda: raster.rasterize(
-            mean_pix, inv_cov, culled.color, culled.opacity, table,
-            tiles_x * tiles_y, tiles_x, tile_h, tile_w)
-        tiles_color = st["raster kernel"]()[0]
-        st["tiles_to_img"] = lambda: um.tiles_to_img(
-            tiles_color, h, w, tile_h, tile_w).clamp(0.0, 1.0)
-        total = 0.0
-        for name, f in st.items():
-            ms = chip_smoke.time_ms(f)
-            # the sum takes binning once, on its default route
-            total += 0.0 if name.startswith("binning ") else ms
-            print(f"stage {name:22s} {ms:8.3f} ms")
-        print(f"stages summed           {total:8.3f} ms")
-        whole = chip_smoke.time_ms(
-            lambda: fn(params, active, view, proj, planes, center))
-        print(f"whole render            {whole:8.3f} ms")
+    def render():
+        return fn(params, active, view, proj, planes, center)
 
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        fn(params, active, view, proj, planes, center)
+    render()
+    torch.cuda.synchronize()
+    with profiling.recording() as rec:
+        for _ in range(FRAMES):
+            render()
+    torch.cuda.synchronize()
+    print(f"spans over {FRAMES} renders (recording, no profiler):")
+    print_stages(rec.stage_table("eval"), FRAMES)
+
+    with torch.no_grad():
+        origin, extend = masked_chunk_aabb(params, active, pp.cluster_size)
+        culled = render_preprocess(params, origin, extend, planes, center,
+                                   sh, pp)
+        view_pos, ndc, inv_cov = _project(culled, view, proj, h, w)
+        for name, stream in (("on", True), ("off", False), ("off", False),
+                             ("on", True)):
+            ms = chip_smoke.time_ms(lambda stream=stream: (
+                binning.build_tile_table(
+                    ndc, view_pos[2], inv_cov, culled.opacity, culled.valid,
+                    h, w, tile_h, tile_w, stream=stream)))
+            print(f"binning alone, streaming {name:3s} {ms:8.3f} ms")
+
+    with profiling.trace(args.trace) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            render()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                fn(params, active, view, proj, planes, center)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
+        wall_us = 1e6 * (time.perf_counter() - t0)
     events = prof.key_averages()
     # device-side rows only: an operator's row repeats its kernels' time
     busy_us = sum(e.self_device_time_total for e in events
@@ -106,7 +113,8 @@ def main() -> int:
     print(f"profiled 5 renders: wall {wall_us / 5e3:.3f} ms/render, device "
           f"busy {busy_us / 5e3:.3f} ms/render "
           f"({100 * busy_us / wall_us:.1f}% of wall), "
-          f"{launches / 5:.0f} device kernels and copies per render")
+          f"{launches / 5:.0f} device kernels and copies per render; "
+          f"timeline and spans in {args.trace}")
     print(events.table(sort_by="self_device_time_total", row_limit=15,
                        max_name_column_width=60))
     return 0

@@ -17,6 +17,9 @@ in no fixed order and carries its prefix in float32.  The four
 stream_gather kernels copy words and count ranks: tolerance 0, and the
 window kernels' ``ok`` bit for bit.
 """
+import collections
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -28,10 +31,12 @@ from litegs_torch.ops import binning, raster_cuda, raster_plain
 from litegs_torch.ops import stream_gather
 from litegs_torch.scene import create_gaussians, pad_params
 from litegs_torch.training import optimizer, statistics
-from litegs_torch.training.trainer import (TrainState,
+from litegs_torch.training.trainer import (TrainState, Trainer,
                                            camera_batch_from_frames,
+                                           make_eval_render,
                                            make_train_step,
                                            masked_chunk_aabb)
+from litegs_torch.utils import profiling
 
 TOL = 1e-4
 TILES = [(8, 16), (16, 16), (16, 32), (32, 24), (32, 32)]
@@ -1015,3 +1020,112 @@ def test_nccl_world1_step_matches_train_step(cuda_device, tmp_path):
         assert parallel.COLLECTIVE_CALLS["all_gather"] == 3
     finally:
         dist.destroy_process_group()
+
+
+def _counted(fn):
+    """(fn's result, its HOST_WAITS marks by site, the synchronizing calls
+    PyTorch reports) for one call under sync debug mode "warn"."""
+    torch.cuda.synchronize()
+    before = profiling.HOST_WAITS.copy()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return out, profiling.HOST_WAITS - before, syncs
+
+
+@pytest.mark.cuda
+def test_host_waits_are_every_sync_and_spans_partition_the_device(
+        cuda_device):
+    """One train step (plain, then collecting statistics) and one eval
+    render at a small size: the HOST_WAITS marks equal PyTorch's count of
+    synchronizing calls, with the spans off and on.  Under ``recording()``
+    every span's device self time is non-negative and the stages' self
+    times sum to each root's event time within 0.01 ms a span; under the
+    profiler each span's host start lies within 1 ms of the profiler's."""
+    h, w = 96, 128
+    data, xyz, rgb = synthetic_train.make_task(
+        n_points=3000, n_frames=2, img_h=h, img_w=w, sh_degree=1, seed=5,
+        device=cuda_device)
+    tr = Trainer(config.ModelParams(sh_degree=1),
+                 config.OptimizationParams(iterations=20),
+                 config.PipelineParams(), config.DensifyParams(),
+                 config.CapacityParams(4096), data, 1.0)
+    state, stats = tr.init_state(xyz, rgb), tr.init_stats()
+    render = make_eval_render(config.PipelineParams(), h, w, 1)
+    with torch.no_grad():
+        origin, extend = masked_chunk_aabb(state.params, state.active_count,
+                                           128)
+
+    def step(collect, i):
+        nonlocal state, stats
+        state, stats, _ = tr._get_step(1, collect)(
+            state, stats, origin, extend, *[x[i] for x in data])
+
+    def frame():
+        return render(state.params, state.active_count, data.view[0],
+                      data.proj[0], data.planes[0], data.center[0])
+
+    step(False, 0)       # builds and loads the kernels
+    frame()
+    found = {}
+    for on in (False, True):
+        for name, fn in (("step", lambda: step(False, 1)),
+                         ("stats step", lambda: step(True, 0)),
+                         ("eval", frame)):
+            if on:
+                with profiling.recording():
+                    _, marked, syncs = _counted(fn)
+            else:
+                _, marked, syncs = _counted(fn)
+            found[name, on] = sum(marked.values())
+            assert sum(marked.values()) == len(syncs), (
+                name, on, dict(marked), collections.Counter(syncs))
+    print("host waits (spans off, on):", found)
+
+    with profiling.recording() as rec:
+        step(False, 1)
+        step(True, 0)
+        frame()
+    recs = rec.records
+    assert all(r.events is not None for r in recs)
+    rec.resolve()
+    kids = collections.defaultdict(float)
+    for r in recs:
+        if r.parent is not None:
+            kids[r.parent] += r.device_ms
+    for i, r in enumerate(recs):
+        assert r.device_ms - kids[i] >= -0.01, (r.name, r.device_ms,
+                                                kids[i])
+    for root, n in (("step", 2), ("eval", 1)):
+        table = rec.stage_table(root)
+        assert table["roots"] == n
+        spans = sum(s["count"] for s in table["stages"].values())
+        parts = sum(s["device_ms"] for s in table["stages"].values())
+        assert abs(parts - table["device_ms"]) <= 0.01 * spans
+        assert table["stages"]["raster_bwd" if root == "step"
+                               else "raster_fwd"]["device_ms"] > 0
+        print(root, {k: round(v["device_ms"], 4)
+                     for k, v in table["stages"].items()})
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    profiling.RECORDER.clear()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(False, 1)
+    mine = {r.name: r.host_start_ns for r in profiling.RECORDER.records}
+    assert set(mine) >= {"step", "backward", "raster_bwd", "adam"}
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() in mine]
+    # host operators only: nothing of a span lands on the device's timeline
+    cuda = torch.autograd.DeviceType.CUDA
+    assert not [e.name() for e in events if e.device_type() == cuda]
+    theirs = {e.name(): e.start_ns() for e in events}
+    assert set(theirs) == set(mine)
+    for k, t in mine.items():
+        assert abs(theirs[k] - t) < 1_000_000, (k, theirs[k] - t)

@@ -34,6 +34,7 @@ Bars:
 * ``ParallelTrainer`` at D = 2 at tests/test_parallel_trainer.py's bars.
 """
 import importlib
+import json
 import os
 import subprocess
 import sys
@@ -702,13 +703,22 @@ def test_cli_parallel_on_trains_through_start(runs, tmp_path):
 def test_profiling_helpers(tmp_path):
     from litegs_torch.utils import profiling
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("outer"):
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                profiling.host_wait("test.read", 2)
             torch.ones(8).sum()
     assert os.path.exists(tmp_path / "trace.json")
-    assert any(e.key == "outer" for e in prof.key_averages())
-    calls = []
-    secs, out = profiling.timed(lambda x: calls.append(x) or x + 1, 2, n=3)
-    assert out == 3 and len(calls) == 4 and secs >= 0.0
+    assert {"outer", "inner"} <= {e.key for e in prof.key_averages()}
+    with open(tmp_path / "spans.json") as f:
+        spans = json.load(f)
+    assert [(s["name"], s["parent"], s["root"]) for s in spans] == [
+        ("outer", None, 0), ("inner", 0, 0)]
+    assert spans[1]["waits"] == {"test.read": 2} and spans[0]["waits"] == {}
+    assert spans[0]["host_start_ns"] <= spans[1]["host_start_ns"]
+    assert spans[1]["host_end_ns"] <= spans[0]["host_end_ns"]
+    assert spans[0]["device_ms"] is None and spans[0]["host_ms"] >= 0.0
+    # outside the profiler the spans are off again
+    assert profiling.span("after") is profiling.span("again")
 
 
 def test_shard_frames_for_process_matches_jax():
