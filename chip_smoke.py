@@ -22,14 +22,15 @@ stops the script with a nonzero exit when it fails:
   3. the serving path at full width -- 1,000,000 gaussians, SH degree 3,
      840x1296 images, 8x16 tiles, 4 views -- through
      evaluation.prepare_model / render_views / score_split, with every
-     kernel's launch count read around that run (the default binning runs
-     expand_window_kernel twice per view and no plain expansion), the
-     forward kernel held against its plain version on a sample of tiles of
-     each view, and per view times (CUDA events, median of 5 after a
-     warm-up); then the streaming binning routes on view 0: the tables of
-     the default route, the asynchronous-copy route and the prefix route
-     identical in every field to the non-streaming table, a render through
-     each route with its launches counted, gather_blocks building the
+     kernel's launch count read around that run (the default binning
+     route, 'keys', runs its count, emit and ranges kernels once each per
+     view, its sort's two kernels once a pass, and no plain version), the forward kernel held against its plain
+     version on a sample of tiles of each view, and per view times (CUDA
+     events, median of 5 after a warm-up); then the binning routes on view
+     0: the tables of the default route, the window route, the
+     asynchronous-copy route and the prefix route identical in every field
+     to the non-streaming table, a render through each route with its
+     launches counted, gather_blocks building the
      128-aligned copy of the table, expand_window_kernel and
      expand_window_async_kernel held to the plain models of their blocks
      (window_step_plain, window_block_plain) on sampled steps of both
@@ -37,8 +38,12 @@ stops the script with a nonzero exit when it fails:
      its plain version, one PyTorch call and its bytes bound, the window
      calls' remaining torch ops timed alone, gather_blocks also at the
      JAX package's own shape (scripts/debug_stream.py: 8 rows of 4,063,232
-     items, 18,342 runs), and the binning stage timed with the streaming
-     kernels on and off;
+     items, 18,342 runs); then the 'keys' route alone on a view of the
+     6M serving cell's shape (6,000,000 points from
+     data.synthetic, 840x1296, 8x16 tiles): its table, and its plain
+     version's run on the card, equal to the non-streaming table, the
+     route and each step (count, scan, emit, sort, ranges) timed beside
+     its bytes bound and the 'window' route;
   4. the training path on the same scene: make_train_step from the
      sh_0-perturbed model toward the unperturbed model's renders -- steady
      steps, then statistics steps, a taming densify step and the Morton
@@ -60,7 +65,7 @@ stops the script with a nonzero exit when it fails:
      restores the saved state bit for bit and finishes; a pose leg resumes
      a checkpoint of the ground-truth gaussians with noisy extrinsics and
      refines them at tests/test_pose.py's bars, writing viewproj.npz; the
-     raster and window kernels' launches are read around each leg (0
+     raster and binning kernels' launches are read around each leg (0
      plain calls); then one learnable-pose step at 96x128 with the 'cuda'
      backend held to the 'torch' backend's extr gradient;
   7. batched views on the serving scene: render_batch at B = 2 and 4 (one
@@ -203,6 +208,18 @@ FWD_RECORD = {"name": "raster_forward", "route": "cuda",
 BWD_RECORD = {"name": "raster_backward", "route": "cuda",
               "source": "litegs_torch/csrc/raster_bwd.cu",
               "replaces": "litegs_tpu/ops/raster_pallas.py:384"}
+KEYS_RECORD = {"name": "bin_count_kernel, bin_emit_kernel, "
+               "bin_sort_count_kernel, bin_sort_scatter_kernel, "
+               "bin_ranges_kernel (the 'keys' binning route)",
+               "route": "cuda", "source": "litegs_torch/csrc/binning.cu",
+               "replaces": None}
+# the view the 'keys' route is timed on alone: the 6M serving cell's shape
+# (6,000,000 points in a ball of radius 1.5, log-scales of the density's
+# spacing less 1 with a spread of 0.5 an axis, 55% opaque at logit 3 and
+# the rest at -2.5, SH 0), one camera of synthetic.make_cameras at
+# IMG_H x IMG_W, 8x16 tiles, made from KEYS_SEED
+KEYS_POINTS = 6_000_000
+KEYS_SEED = 7
 SG_SOURCE = "litegs_torch/csrc/stream_gather.cu"
 SG_RECORDS = {
     "expand_prefix_kernel": {
@@ -689,18 +706,47 @@ def phase_stream_kernels(dev):
     return worst
 
 
-def check_stream_counts(what: str, launches: dict, plain_calls: int,
-                        views: int):
-    """The default binning route: expand_window_kernel twice per view, no
-    other stream_gather kernel and no plain expansion."""
-    others = {k: v for k, v in launches.items()
-              if v and k != "expand_window_kernel"}
-    if launches["expand_window_kernel"] != 2 * views or others:
-        fail(f"{what}: expand_window_kernel launched "
-             f"{launches['expand_window_kernel']} times for {views} views "
-             f"(2 each expected), other stream_gather kernels {others}")
-    if plain_calls != 0:
-        fail(f"{what}: the plain expansions ran {plain_calls} times")
+def reset_binning_counts():
+    from litegs_torch.ops import binning, binning_cuda
+    from litegs_torch.ops import stream_gather as sg
+    sg.reset_counts()
+    binning_cuda.reset_counts()
+    binning.PLAIN_CALLS = 0
+
+
+def keys_launches_ok(launches: dict, views: int) -> bool:
+    """The 'keys' route's launches for ``views`` views with entries: count,
+    emit and ranges once a view, the sort's two kernels alike, one to
+    eight passes a view."""
+    sort = launches["bin_sort_count_kernel"]
+    return (launches["bin_count_kernel"] == launches["bin_emit_kernel"]
+            == launches["bin_ranges_kernel"] == views
+            and launches["bin_sort_scatter_kernel"] == sort
+            and views <= sort <= 8 * views)
+
+
+# each 'keys' kernel's launches on the paths check_binning_counts checked
+KEYS_PATH_LAUNCHES: dict = {}
+
+
+def check_binning_counts(what: str, views: int) -> int:
+    """The default binning route ('keys'): its kernels launched for each
+    view binned (keys_launches_ok), no stream_gather kernel and no plain
+    version; the launches are added to KEYS_PATH_LAUNCHES.  Returns the
+    views binned."""
+    from litegs_torch.ops import binning, binning_cuda
+    from litegs_torch.ops import stream_gather as sg
+    keys = binning_cuda.LAUNCHES
+    others = {k: v for k, v in sg.LAUNCHES.items() if v}
+    if not keys_launches_ok(keys, views) or others:
+        fail(f"{what}: the binning kernels launched {keys} for {views} "
+             f"views, stream_gather kernels {others}")
+    plain = sg.PLAIN_CALLS + binning.PLAIN_CALLS
+    if plain != 0:
+        fail(f"{what}: the plain binning versions ran {plain} times")
+    for k, v in keys.items():
+        KEYS_PATH_LAUNCHES[k] = KEYS_PATH_LAUNCHES.get(k, 0) + v
+    return keys["bin_count_kernel"]
 
 
 def view_binning_inputs(params, active, batch, i, sh_degree, pp):
@@ -786,24 +832,24 @@ def bytes_bound(nbytes: int, ops: int):
 
 def phase_stream_routes(dev, label: str, params, active: int, batch,
                         sh_degree: int, timed: bool):
-    """The streaming binning routes at full width on view 0: every route's
-    table identical to the non-streaming table with its launches counted,
-    the window check's margin, a view that emits no row, gather_blocks
-    building the table's 128-aligned copy, and (``timed``) each kernel's
-    numbers.  Returns
+    """The binning routes at full width on view 0: every route's table
+    identical to the non-streaming table with its launches counted, the
+    window check's margin, a view that emits no row, gather_blocks
+    building the table's 128-aligned copy, and (``timed``) each
+    stream_gather kernel's numbers.  Returns
     ({kernel: launches counted here}, {kernel: record} when timed)."""
     import torch
     from litegs_torch import config
-    from litegs_torch.ops import binning
+    from litegs_torch.ops import binning, binning_cuda
     from litegs_torch.ops import stream_gather as sg
 
     pp = config.PipelineParams()
     args = view_binning_inputs(params, active, batch, 0, sh_degree, pp)
 
     # ---- every route's table against the non-streaming table, with its ----
-    # ---- launches counted (this slice's own path: the routes are reached
-    # only through build_tile_table's argument); the default route's
-    # expansion inputs are kept for the timings ----
+    # ---- launches counted (the stream_gather kernels' own path: their
+    # routes are reached only through build_tile_table's argument); the
+    # window route's expansion inputs are kept for the timings ----
     off = binning.build_tile_table(*args, stream=False)
     seen = []
     real = sg.expand_attrs_windowed
@@ -814,22 +860,30 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
 
     launches = dict.fromkeys(sg.LAUNCHES, 0)
     for route, expect in (
+            (None, None),
             (True, {"expand_window_kernel": 2}),
             ("async", {"expand_window_async_kernel": 2}),
             ("prefix", {"expand_prefix_kernel": 1,
                         "expand_window_kernel": 1})):
         if route is True:
             sg.expand_attrs_windowed = spy
-        sg.reset_counts()
+        reset_binning_counts()
         try:
             on = binning.build_tile_table(*args, stream=route)
         finally:
             sg.expand_attrs_windowed = real
-        got = {k: v for k, v in sg.LAUNCHES.items() if v}
-        if got != expect or sg.PLAIN_CALLS:
+        got = {k: v for k, v in {**sg.LAUNCHES,
+                                 **binning_cuda.LAUNCHES}.items() if v}
+        plain = sg.PLAIN_CALLS + binning.PLAIN_CALLS
+        if route is None:          # the 'keys' kernels only
+            ok = (keys_launches_ok(binning_cuda.LAUNCHES, 1)
+                  and not any(sg.LAUNCHES.values()))
+        else:
+            ok = got == expect
+        if not ok or plain:
             fail(f"{label}: build_tile_table(stream={route!r}) launched "
-                 f"{got} and made {sg.PLAIN_CALLS} plain calls")
-        if route is not True:      # the default route counts on its own path
+                 f"{got} and made {plain} plain calls")
+        if route is not None:      # the default route counts on its path
             for k, v in got.items():
                 launches[k] += v
         for field in off._fields:
@@ -839,8 +893,8 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
                 fail(f"{label}: table field {field} of stream={route!r} "
                      "differs from the non-streaming table")
     print(f"{label} view 0: rows={off.num_rows} entries={off.num_entries}; "
-          "tables of stream=True / 'async' / 'prefix' identical to "
-          "stream=False in every field")
+          "tables of the default route ('keys') and of stream=True / "
+          "'async' / 'prefix' identical to stream=False in every field")
 
     # ---- the margin of the window check: the most items any step's ----
     # ---- owners span, beside what the window holds ----
@@ -859,14 +913,18 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
     # ---- every route returns the empty table and launches nothing ----
     none_valid = (*args[:4], torch.zeros_like(args[4]), *args[5:])
     for route in (None, False, True, "async", "prefix"):
-        sg.reset_counts()
+        reset_binning_counts()
         table = binning.build_tile_table(*none_valid, stream=route)
+        counted = {"bin_count_kernel": 1} if route is None else {}
+        got = {k: v for k, v in binning_cuda.LAUNCHES.items() if v}
         if (table.num_rows or table.num_entries or table.sorted_point.numel()
                 or int(table.tile_count.sum()) or sg.PLAIN_CALLS
-                or any(sg.LAUNCHES.values())):
+                or binning.PLAIN_CALLS or any(sg.LAUNCHES.values())
+                or got != counted):
             fail(f"{label}: a view without rows, stream={route!r}: "
                  f"rows={table.num_rows} entries={table.num_entries} "
-                 f"launches={sg.LAUNCHES} plain calls={sg.PLAIN_CALLS}")
+                 f"launches={sg.LAUNCHES} {got} plain calls="
+                 f"{sg.PLAIN_CALLS + binning.PLAIN_CALLS}")
     print(f"{label} view 0 with no valid point: the empty table from the "
           "default route and from every other")
 
@@ -891,16 +949,6 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
           f"{src_lo.numel()} blocks of 128 equal to plain; launches "
           f"counted here {launches}")
 
-    # ---- the binning stage with the streaming kernels on and off ----
-    t_on = [time_ms(lambda: binning.build_tile_table(*args, stream=True))]
-    t_off = [time_ms(lambda: binning.build_tile_table(*args, stream=False))]
-    t_off.append(time_ms(
-        lambda: binning.build_tile_table(*args, stream=False)))
-    t_on.append(time_ms(lambda: binning.build_tile_table(*args, stream=True)))
-    print(f"{label} view 0: binning stage (CUDA events, median of "
-          f"{REPEATS}, order on/off/off/on) stream on "
-          f"{t_on[0]:.3f} / {t_on[1]:.3f} ms, stream off {t_off[0]:.3f} / "
-          f"{t_off[1]:.3f} ms")
     if not timed:
         return launches, None
 
@@ -990,6 +1038,143 @@ def phase_stream_routes(dev, label: str, params, active: int, batch,
     for kernel, rec in records.items():
         rec["max_abs_err"] = worst[kernel]
     return launches, records
+
+
+def keys_view(dev):
+    """build_tile_table's arguments for the 6M view KEYS_POINTS / KEYS_SEED
+    describe, built by the port's own generator and preprocessing."""
+    import torch
+    from litegs_torch import config
+    from litegs_torch.data import synthetic
+    from litegs_torch.scene.gaussians import GaussianModel
+    from litegs_torch.scene.morton import spatial_sort_indices
+    from litegs_torch.training.trainer import camera_batch_from_frames
+    from litegs_torch.utils import sh as sh_utils
+    n, extent = KEYS_POINTS, 1.5
+    xyz, rgb = synthetic.make_gaussian_cloud(n, seed=KEYS_SEED,
+                                             extent=extent)
+    xyz = torch.from_numpy(xyz).to(dev).T.contiguous()
+    g = torch.Generator(device=dev).manual_seed(KEYS_SEED)
+    spacing = (4.0 / 3.0 * math.pi * extent ** 3 / n) ** (1.0 / 3.0)
+    scale = math.log(spacing) - 1.0 + 0.5 * torch.randn(
+        (3, n), generator=g, device=dev)
+    rot = torch.randn((4, n), generator=g, device=dev)
+    rot = rot / torch.linalg.vector_norm(rot, dim=0, keepdim=True)
+    opaque = torch.rand(n, generator=g, device=dev) < 0.55
+    logit = torch.where(opaque, 3.0, -2.5) + torch.randn(
+        n, generator=g, device=dev)
+    sh_0 = sh_utils.rgb_to_sh0(torch.from_numpy(rgb).to(dev).T)[None]
+    order = spatial_sort_indices(xyz)
+    params = GaussianModel(
+        xyz=xyz[:, order], scale=scale[:, order], rot=rot[:, order],
+        sh_0=sh_0[..., order].contiguous(),
+        sh_rest=torch.zeros((0, n), device=dev), opacity=logit[None, order])
+    cam, frames = synthetic.make_cameras(1, IMG_H, IMG_W, seed=KEYS_SEED)
+    batch = camera_batch_from_frames(
+        cam, frames, np.zeros((1, 3, IMG_H, IMG_W), np.float32), device=dev)
+    args = view_binning_inputs(params, n, batch, 0, 0,
+                               config.PipelineParams(tile_size=(8, 16)))
+    del params
+    return args
+
+
+def table_diff(a, b) -> dict:
+    """Each field's largest absolute difference between two tables (inf
+    where the dtypes or shapes differ)."""
+    import torch
+    out = {}
+    for field in a._fields:
+        x, y = getattr(a, field), getattr(b, field)
+        if not torch.is_tensor(x):
+            out[field] = abs(x - y)
+        elif x.dtype != y.dtype or x.shape != y.shape:
+            out[field] = math.inf
+        elif x.numel():
+            out[field] = int((x.long() - y.long()).abs().max())
+        else:
+            out[field] = 0
+    return out
+
+
+def keys_steps(args):
+    """The 'keys' route's steps on one view, each a callable, and its bytes
+    bound: each input read and each output written once."""
+    import torch
+    from litegs_torch.ops import binning
+    from litegs_torch.ops import binning_cuda as bc
+    ndc, z, inv, op, valid, h, w, th, tw = args
+    geom = bc.Geometry(h, w, th, tw)
+    tiles = math.ceil(h / th) * math.ceil(w / tw)
+    inputs = bc.point_inputs(ndc, z, inv, op, valid)
+    entries, totals = bc.count(inputs, geom)
+    ends = torch.cumsum(entries, 0, dtype=torch.int32)
+    rows, e, z_lo, z_hi = totals.tolist()
+    z_min, zb, key_bits = binning._key_layout(0xFFFFFFFF - z_lo, z_hi, tiles)
+    keys, points = bc.emit(inputs, geom, entries, ends, z_min, zb, e)
+    skeys, _ = bc.sort_pairs(keys.clone(), points.clone(), key_bits)
+    m = z.shape[0]
+    steps = {
+        "count": lambda: bc.count(inputs, geom),
+        "scan": lambda: torch.cumsum(entries, 0, dtype=torch.int32),
+        "emit": lambda: bc.emit(inputs, geom, entries, ends, z_min, zb, e),
+        "sort": lambda: bc.sort_pairs(keys.clone(), points.clone(),
+                                      key_bits),
+        "ranges": lambda: bc.ranges(skeys, zb, tiles),
+    }
+    # inputs: 7 float words and a bool a point; outputs: sorted_point,
+    # sorted_tile, entry_valid, tile_start, tile_count, point_counts,
+    # primitive_visible
+    nbytes = 29 * m + 9 * e + 8 * tiles + 5 * m
+    return steps, nbytes, key_bits
+
+
+def phase_binning_keys(dev):
+    """The 'keys' binning route alone on the 6M view of keys_view: its
+    table equal to stream=False's field for field, and so is its plain
+    version run on the card; the route and each of its steps timed (CUDA
+    events, median of REPEATS) beside its bytes bound and the 'window'
+    route, in the order keys, window, window, keys.  Returns the kernel
+    record."""
+    import torch
+    from litegs_torch.ops import binning
+    args = keys_view(dev)
+    off = binning.build_tile_table(*args, stream=False)
+    calls = binning.PLAIN_CALLS
+    worst = 0
+    for what, route in (("the kernels", lambda: binning.build_tile_table(
+            *args)), ("the plain version", lambda: binning.
+                      _table_by_keys_plain(*args))):
+        diff = table_diff(off, route())
+        worst = max(worst, *diff.values())
+        if any(diff.values()):
+            fail(f"6M view: the 'keys' route ({what}) differs from "
+                 f"stream=False: {diff}")
+    steps, nbytes, key_bits = keys_steps(args)
+    step_ms = {k: time_ms(fn) for k, fn in steps.items()}
+    times = {"keys": [], "window": []}
+    for route in ("keys", "window", "window", "keys"):
+        times[route].append(time_ms(lambda: binning.build_tile_table(
+            *args, stream=route)))
+    plain_ms = time_ms(lambda: binning._table_by_keys_plain(*args))
+    binning.PLAIN_CALLS = calls
+    bound_ms, bound_by = bytes_bound(nbytes, 0)
+    ms = statistics.mean(times["keys"])
+    m, r, e = int(args[1].shape[0]), off.num_rows, off.num_entries
+    print(f"6M view (seed {KEYS_SEED}): M={m} R={r} E={e}, "
+          f"{key_bits} key bits; the 'keys' route {times['keys'][0]:.3f} / "
+          f"{times['keys'][1]:.3f} ms, the 'window' route "
+          f"{times['window'][0]:.3f} / {times['window'][1]:.3f} ms; steps "
+          + ", ".join(f"{k} {v:.4f}" for k, v in step_ms.items())
+          + f" ms; bytes {nbytes} bound_ms={bound_ms:.4f} ({bound_by}), "
+          f"{bound_ms / ms:.1%} of it; plain version on the card "
+          f"{plain_ms:.3f} ms; tables equal to stream=False")
+    del args, off
+    torch.cuda.empty_cache()
+    return dict(KEYS_RECORD, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                window_route_ms=statistics.mean(times["window"]),
+                steps_ms=step_ms, m=m, r=r, e=e,
+                key_bits=key_bits, max_abs_err=worst)
 
 
 def gather_at_jax_shape(dev, label: str):
@@ -1114,8 +1299,7 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
     import torch
     from litegs_torch import config, evaluation
     from litegs_torch.data import synthetic
-    from litegs_torch.ops import raster_cuda, raster_plain
-    from litegs_torch.ops import stream_gather as sg
+    from litegs_torch.ops import binning_cuda, raster_cuda, raster_plain
     from litegs_torch.render import render, render_preprocess
     from litegs_torch.training.trainer import (camera_batch_from_frames,
                                                make_eval_render,
@@ -1138,7 +1322,7 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
         torch.cuda.reset_peak_memory_stats()
     raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
     raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
-    sg.reset_counts()
+    reset_binning_counts()
     t0 = time.perf_counter()
     gt = torch.stack([img for _, img in evaluation.render_views(
         prepared, active, blank, pp, sh_degree)])
@@ -1148,14 +1332,14 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
     wall = time.perf_counter() - t0
     launches, launches_bwd = raster_cuda.LAUNCHES, raster_cuda.LAUNCHES_BWD
     plain_calls = raster_plain.CALLS + raster_plain.BACKWARD_CALLS
-    sg_launches, sg_plain = dict(sg.LAUNCHES), sg.PLAIN_CALLS
+    bin_launches = dict(binning_cuda.LAUNCHES)
     views_rendered = n_views + s_pert["n_views"] + s_self["n_views"]
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else 0)
     print(f"serving path: {views_rendered} views rendered in {wall:.2f} s; "
           f"raster_forward launches={launches}, raster_backward "
           f"launches={launches_bwd}, plain calls={plain_calls}; "
-          f"stream_gather launches={sg_launches}, plain calls={sg_plain}")
+          f"binning launches={bin_launches}")
     print(f"score perturbed sh_0: {json.dumps(s_pert)}")
     print(f"score self: {json.dumps(s_self)}")
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
@@ -1169,8 +1353,7 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
     if plain_calls != 0:
         fail(f"the plain raster versions ran {plain_calls} times on the "
              "serving path")
-    check_stream_counts("serving path", sg_launches, sg_plain,
-                        views_rendered)
+    binned = check_binning_counts("serving path", views_rendered)
     if not s_self["psnr"] >= 60.0:
         fail(f"self-score PSNR {s_self['psnr']} < 60 dB")
     if not (np.isfinite(s_pert["psnr"]) and 5.0 < s_pert["psnr"] < 60.0
@@ -1241,7 +1424,7 @@ def phase_serving(dev, prepared, active, img_h: int, img_w: int,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None)
     record["max_abs_err"] = worst
-    return record, batch, sg_launches["expand_window_kernel"]
+    return record, batch, binned
 
 
 def profile_steps(fn, n_steps: int):
@@ -1282,9 +1465,9 @@ def chunk_snapshot(state, chunks, chunk_size: int):
 
 def phase_training(dev, prepared, active: int, batch, sh_degree: int):
     """Train at full width through make_train_step; returns (forward
-    launches, backward kernel record, expand_window_kernel launches of the
-    training windows, the launches the streaming-route checks counted on
-    the trained model)."""
+    launches, backward kernel record, views binned by the 'keys' kernels in
+    the training windows, the launches the route checks counted on the
+    trained model)."""
     import torch
     from litegs_torch import config, evaluation
     from litegs_torch.ops import binning, losses, raster, raster_cuda
@@ -1647,39 +1830,35 @@ class Timed:
 
 def zero_path_counts():
     from litegs_torch.ops import raster_cuda, raster_plain
-    from litegs_torch.ops import stream_gather as sg
     raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BWD = 0
     raster_plain.CALLS = raster_plain.BACKWARD_CALLS = 0
-    sg.reset_counts()
+    reset_binning_counts()
 
 
 def read_path_counts(what: str, steps: int, views: int,
                      step_views: int = 1):
-    """The launches (forward, backward, window expansion) of the path's
-    three kernels since zero_path_counts: one forward per step and per
-    evaluated view, one backward per step, two window expansions per view
-    binned (``step_views`` per step), no other kernel, no plain call."""
+    """The launches (forward, backward, views binned) of the path's kernels
+    since zero_path_counts: one forward per step and per evaluated view,
+    one backward per step, the binning kernels once each per view binned
+    (``step_views`` per step), no other kernel, no plain call."""
     return read_counts(what, steps + views, steps, steps * step_views + views)
 
 
 def read_counts(what: str, forwards: int, backwards: int, binned: int):
     """The path's kernel launches since zero_path_counts against the
-    expected forwards, backwards and views binned (two window expansions
-    each); no other kernel, no plain call."""
-    from litegs_torch.ops import raster_cuda, raster_plain
-    from litegs_torch.ops import stream_gather as sg
+    expected forwards, backwards and views binned (the binning kernels once
+    each a view); no other kernel, no plain call."""
+    from litegs_torch.ops import binning_cuda, raster_cuda, raster_plain
     fwd, bwd = raster_cuda.LAUNCHES, raster_cuda.LAUNCHES_BWD
     plain = raster_plain.CALLS + raster_plain.BACKWARD_CALLS
     print(f"{what}: {forwards} forwards, {backwards} backwards, {binned} "
           f"views binned expected; raster_forward launches={fwd}, "
           f"raster_backward launches={bwd}, plain calls={plain}; "
-          f"stream_gather launches={sg.LAUNCHES}, plain calls="
-          f"{sg.PLAIN_CALLS}")
+          f"binning launches={binning_cuda.LAUNCHES}")
     if fwd != forwards or bwd != backwards or plain:
         fail(f"{what}: kernels launched {fwd} / {bwd} times for {forwards} "
              f"forwards and {backwards} backwards, {plain} plain calls")
-    check_stream_counts(what, sg.LAUNCHES, sg.PLAIN_CALLS, binned)
-    return fwd, bwd, sg.LAUNCHES["expand_window_kernel"]
+    return fwd, bwd, check_binning_counts(what, binned)
 
 
 def norm_quat_rows(extr):
@@ -1908,7 +2087,7 @@ def phase_colmap(dev, prepared, active: int):
     run_b1 = {"argv": common + train_args, "epoch_s": epoch_s,
               "test_psnr": (hist[3]["test_psnr"], hist[7]["test_psnr"])}
     return dict(zip(("raster_forward", "raster_backward",
-                     "expand_window_kernel"), launches.tolist())), run_b1
+                     "bin_count_kernel"), launches.tolist())), run_b1
 
 
 def sliced_grads(g, lo: int, hi: int):
@@ -2976,7 +3155,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sg_launches, sg_records = phase_stream_routes(
         dev, "serving scene", prepared, active, batch, SH_DEGREE, timed=True)
-    print(f"streaming routes phase {time.perf_counter() - t0:.1f} s")
+    keys_record = phase_binning_keys(dev)
+    print(f"binning routes phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fwd_launches, bwd, win_training, sg_trained = phase_training(
         dev, prepared, active, batch, SH_DEGREE)
@@ -3021,26 +3201,29 @@ def main() -> int:
                      + int(path[0]))
     bwd["launches"] += (colmap["raster_backward"] + int(batched[1])
                         + int(par[1]) + int(path[1]))
-    win_training += (colmap["expand_window_kernel"] + int(batched[2])
+    win_training += (colmap["bin_count_kernel"] + int(batched[2])
                      + int(par[2]) + int(path[2]))
     fwd["launches"] = fwd_launches
     # the merged forward is bit-equal to the single views' (checked)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], worst_fwd)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], worst_bwd, worst_batched)
-    # launches: expand_window_kernel on the serving and training paths (the
-    # default route); the other three in the streaming-route phases, whose
-    # tables and aligned copies are this slice's own path
+    # launches: each 'keys' kernel's on the serving and training paths
+    # (the default route), beside the views they binned; the stream_gather
+    # kernels in the route phases, whose tables and aligned copies are
+    # their own path
     for kernel, rec in sg_records.items():
         rec["launches"] = sg_launches[kernel] + sg_trained[kernel]
         rec["max_abs_err"] = max(rec["max_abs_err"], worst_sg[kernel])
-    sg_records["expand_window_kernel"]["launches"] = (win_serving
-                                                      + win_training)
-    for rec in (fwd, bwd, *sg_records.values()):
-        if not rec["launches"] > 0:
+    keys_record["launches"] = dict(KEYS_PATH_LAUNCHES)
+    keys_record["views_binned"] = win_serving + win_training
+    for rec in (fwd, bwd, keys_record, *sg_records.values()):
+        n = rec["launches"]
+        if not (min(n.values(), default=0) if isinstance(n, dict)
+                else n) > 0:
             fail(f"{rec['name']} was never launched on its path")
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [fwd, bwd, *(
-        sg_records[k] for k in SG_RECORDS)]}))
+        sg_records[k] for k in SG_RECORDS), keys_record]}))
     card = card_line()
     for label, line in bench_lines.items():
         print(f"bench {label} on {card}: {line}")

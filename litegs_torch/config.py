@@ -22,14 +22,14 @@ from __future__ import annotations
 import dataclasses
 from argparse import ArgumentParser
 
-# Binning expansion backend on CUDA tensors: the hand-written streaming
-# kernels of ops/stream_gather (the counterpart of the reference's
-# prefix-sum + emit, binning.cu:33-110) against torch.repeat_interleave and
-# a row gather.  A bool, as in the JAX package: True runs both expansions
-# through expand_attrs_windowed, False turns the streaming path off.  Read
-# at each call of ops/binning.build_tile_table, whose ``stream`` argument
-# overrides it (and reaches the other kernels' routes by name).  CPU tensors
-# never stream by default.
+# Binning's streaming route: a bool, as in the JAX package.  True builds
+# the table by the 'keys' route of ops/binning.build_tile_table (the
+# reference's count -> scan -> duplicate-with-keys -> sort -> ranges,
+# binning.cu:33-110: the kernels of ops/binning_cuda on CUDA tensors, their
+# plain version on CPU tensors); False by the two expansions through
+# torch.repeat_interleave and a row gather.  Read at each call of
+# build_tile_table, whose ``stream`` argument overrides it (and reaches the
+# stream_gather kernels' routes by name).
 BINNING_STREAM = True
 
 

@@ -1,21 +1,31 @@
 """Tile binning: build the per-tile depth-sorted gaussian table.
 
 The counterpart of ``litegs_tpu/ops/binning.py``, with buffers sized exactly
-from the data:
+from the data.  Every route applies the same visibility test and
+closed-form exact ellipse/tile-row intersection (speedy-splat's AccuTile
+slab walk, evaluated per (point, tile-row) pair), with the row range
+tightened to rows whose clipped x-span is nonempty, and gives the same
+table, entry for entry.  The default route (``'keys'``, on CPU and CUDA
+tensors alike while ``config.BINNING_STREAM`` is on) is the reference's
+count -> scan -> duplicate-with-keys -> sort -> ranges (binning.cu:33-110):
 
-  1. the same visibility test and closed-form exact ellipse/tile-row
-     intersection (speedy-splat's AccuTile slab walk, evaluated per
-     (point, tile-row) pair), with the row range tightened to rows whose
-     clipped x-span is nonempty;
-  2. a stable depth sort of the points;
-  3. two expansions, point -> (point, tile-row) -> (point, tile).  The
-     streaming configuration (``stream``, the default on CUDA tensors:
-     ``config.BINNING_STREAM``) replicates each stage's payload through the
-     hand-written kernels of ``ops/stream_gather``; the other one decodes
-     owners with :func:`expand_with_table` (``torch.repeat_interleave`` and
-     one row gather).  Both give the same table, entry for entry;
-  4. a stable sort by tile, so each tile's entries are contiguous and in
-     depth order.
+  1. count each point's rows and entries (``bin_count_kernel`` of
+     ``ops/binning_cuda`` on the card), and read both totals and the range
+     of the emitting points' view-z bits to the host in one copy;
+  2. emit each entry's key ``tile << zb | (view-z bits - their least)``
+     (``zb`` the width of their range) and point id at its point's offset
+     in the scan of the entry counts;
+  3. sort the pairs once, stably, by the key's tile and depth bits: entries
+     emitted in point order come out tile by tile, each tile's in depth
+     order, ties by point index;
+  4. find each tile's run in the sorted keys.
+
+The other routes, kept by name, build the same table as the JAX package
+does: a stable depth sort of the points, two expansions point ->
+(point, tile-row) -> (point, tile) -- through the hand-written kernels of
+``ops/stream_gather`` (``True`` or ``'window'``, ``'async'``,
+``'prefix'``) or :func:`expand_with_table` (``False``) -- a stable sort by
+tile and two histograms.
 
 The table is exact and unpadded: tile t owns entries
 ``[tile_start[t], tile_start[t] + tile_count[t])``.  The JAX package's
@@ -31,7 +41,7 @@ import torch
 
 from .. import config
 from ..utils import profiling
-from . import stream_gather
+from . import binning_cuda, stream_gather
 
 # float -> int32 conversions saturate here first: torch's cast of an
 # out-of-range float is undefined, XLA's saturates
@@ -226,16 +236,20 @@ def expand_with_table(counts, table):
 # windows are the step + 128 (rows: every emitting point owns >= 1 row) and
 # the step + 256 (entries: slack for rows that float32 tangency left empty)
 STREAM_STEP = 512
-STREAM_ROUTES = ("window", "async", "prefix")
+STREAM_ROUTES = ("keys", "window", "async", "prefix")
+
+# calls of the 'keys' route's plain version, so a run can show that a CUDA
+# tensor never took it
+PLAIN_CALLS = 0
 
 
-def stream_route(stream, on_cuda: bool):
-    """The streaming route ``stream`` selects, or None for the
-    non-streaming expansions.  None means ``config.BINNING_STREAM`` (a
-    bool) on CUDA tensors and off on CPU tensors; True means ``'window'``,
-    and the other routes are reached by name only."""
+def stream_route(stream):
+    """The route ``stream`` selects, or None for the non-streaming
+    expansions.  None means ``'keys'`` while ``config.BINNING_STREAM`` (a
+    bool) is on, and None otherwise; True means ``'window'``, and the other
+    routes are reached by name only."""
     if stream is None:
-        stream = bool(config.BINNING_STREAM) if on_cuda else False
+        stream = "keys" if config.BINNING_STREAM else False
     if stream is True:
         return "window"
     if not stream:
@@ -255,9 +269,163 @@ def _check_windows(*oks):
         raise RuntimeError(
             "streaming binning: an expansion step's owners span more items "
             "than its window holds (a long run of rows that own no tile); "
-            "set litegs_torch.config.BINNING_STREAM = False, or pass "
-            "stream=False to build_tile_table, to build the table without "
-            "the streaming kernels")
+            "pass stream='keys' or stream=False to build_tile_table to "
+            "build the table without the window kernels")
+
+
+def _point_rows(ndc, view_z, inv_cov2d, opacity, valid_mask,
+                img_h: int, img_w: int, tile_h: int, tile_w: int):
+    """Every point's row walk: (visible, (px, py, a, b, c, t, disc) with
+    invisible points' values made safe, rect_min_x, rect_max_x, row_min_y,
+    n_rows), the rows tightened to those with a nonempty clipped x-span
+    (every emitted row then produces >= 1 entry, what the streaming
+    windows count on)."""
+    tiles_x = math.ceil(img_w / tile_w)
+    tiles_y = math.ceil(img_h / tile_h)
+    visible, px, py, a_s, b, c_s, disc_s, t_s = _visible_and_safe(
+        ndc, view_z, inv_cov2d, opacity, valid_mask, img_h, img_w)
+    _, _, rect_min_x, rect_max_x, rect_min_y, rect_max_y = \
+        _ellipse_tile_rect(px, py, a_s, c_s, t_s, disc_s,
+                           tile_h, tile_w, tiles_x, tiles_y)
+    y_lo, y_hi = _y_span_in_xband(
+        px, py, a_s, b, c_s, t_s, disc_s,
+        rect_min_x.float() * tile_w, rect_max_x.float() * tile_w)
+    row_min_y = _clip_i(_to_i32(torch.floor(y_lo / tile_h)),
+                        rect_min_y, rect_max_y)
+    row_max_y = _clip_i(_to_i32(torch.floor(y_hi / tile_h)) + 1,
+                        rect_min_y, rect_max_y)
+    n_rows = torch.where(visible & (rect_max_x > rect_min_x),
+                         torch.clamp(row_max_y - row_min_y, min=0),
+                         torch.zeros_like(row_min_y))
+    return (visible, (px, py, a_s, b, c_s, t_s, disc_s), rect_min_x,
+            rect_max_x, row_min_y, n_rows)
+
+
+def _table(sorted_point, sorted_tile, tile_start, tile_count, point_counts,
+           num_rows: int, num_entries: int) -> BinningResult:
+    return BinningResult(
+        sorted_point=sorted_point.to(torch.int32),
+        sorted_tile=sorted_tile.to(torch.int32),
+        entry_valid=torch.ones(num_entries, dtype=torch.bool,
+                               device=sorted_point.device),
+        tile_start=tile_start.to(torch.int32),
+        tile_count=tile_count.to(torch.int32),
+        num_entries=num_entries,
+        num_rows=num_rows,
+        primitive_visible=point_counts > 0,
+        point_counts=point_counts.to(torch.int32),
+        overflow=False)
+
+
+def _empty_table(m: int, tiles_total: int, num_rows: int, point_counts,
+                 dev) -> BinningResult:
+    """The table of a view whose points emit no entry."""
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(tiles_total, dtype=torch.int32, device=dev)
+    if point_counts is None:
+        point_counts = torch.zeros(m, dtype=torch.int32, device=dev)
+    return _table(none, none, zeros, zeros, point_counts, num_rows, 0)
+
+
+def _key_layout(z_lo: int, z_hi: int, tiles_total: int):
+    """(z_min, zb, key bits) of a view whose emitting points' view-z bits
+    span [z_lo, z_hi]: a key is ``tile << zb | (z bits - z_min)``."""
+    zb = (z_hi - z_lo).bit_length()
+    return z_lo, zb, (tiles_total - 1).bit_length() + zb
+
+
+def _table_by_keys(ndc, view_z, inv_cov2d, opacity, valid_mask,
+                   img_h: int, img_w: int, tile_h: int, tile_w: int):
+    """The ``'keys'`` route on the card: count, scan, one host read of the
+    totals and the depth range, emit, one stable sort of the pairs,
+    ranges."""
+    dev = ndc.device
+    m = ndc.shape[-1]
+    tiles_total = math.ceil(img_w / tile_w) * math.ceil(img_h / tile_h)
+    if m == 0:
+        return _empty_table(0, tiles_total, 0, None, dev)
+    geom = binning_cuda.Geometry(img_h, img_w, tile_h, tile_w)
+    inputs = binning_cuda.point_inputs(ndc, view_z, inv_cov2d, opacity,
+                                       valid_mask)
+    entries, totals = binning_cuda.count(inputs, geom)
+    ends = torch.cumsum(entries, 0, dtype=torch.int32)
+    profiling.host_wait("bin.sizes")
+    num_rows, num_entries, z_lo, z_hi = totals.tolist()
+    if num_entries >= 2 ** 31:
+        raise ValueError(f"{num_entries} table entries do not fit int32 "
+                         "offsets")
+    if num_entries == 0:
+        return _empty_table(m, tiles_total, num_rows, entries, dev)
+    z_min, zb, key_bits = _key_layout(0xFFFFFFFF - z_lo, z_hi, tiles_total)
+    keys, points = binning_cuda.emit(inputs, geom, entries, ends, z_min, zb,
+                                     num_entries)
+    keys, points = binning_cuda.sort_pairs(keys, points, key_bits)
+    sorted_tile, tile_start, tile_count = binning_cuda.ranges(
+        keys, zb, tiles_total)
+    return _table(points, sorted_tile, tile_start, tile_count, entries,
+                  num_rows, num_entries)
+
+
+def _table_by_keys_plain(ndc, view_z, inv_cov2d, opacity, valid_mask,
+                         img_h: int, img_w: int, tile_h: int, tile_w: int):
+    """The plain PyTorch version of the ``'keys'`` route, for CPU tensors:
+    the same count, emit order, key, stable sort (one ``torch.sort``) and
+    ranges, the row walk in tensor ops over every (point, row) pair."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    dev = ndc.device
+    m = ndc.shape[-1]
+    tiles_x = math.ceil(img_w / tile_w)
+    tiles_total = tiles_x * math.ceil(img_h / tile_h)
+    if m == 0:
+        return _empty_table(0, tiles_total, 0, None, dev)
+    _, q, rect_min_x, rect_max_x, row_min_y, n_rows = _point_rows(
+        ndc, view_z, inv_cov2d, opacity, valid_mask, img_h, img_w, tile_h,
+        tile_w)
+    # count: each point's rows, then each row's tiles
+    row_pt = torch.repeat_interleave(torch.arange(m, device=dev), n_rows)
+    first_row = torch.cumsum(n_rows, 0) - n_rows
+    row_int = torch.stack([rect_min_x, rect_max_x, row_min_y,
+                           view_z.view(torch.int32)])[:, row_pt]
+    row_y = (row_int[2] + torch.arange(row_pt.shape[0], device=dev)
+             - first_row[row_pt]).to(torch.int32)
+    min_tile_x, row_tiles = tile_counts_for_rows(
+        *torch.stack(q)[:, row_pt], row_y.float(), float(tile_h),
+        float(tile_w), row_int[0], row_int[1])
+    entries = torch.zeros(m, dtype=torch.int32, device=dev).index_add_(
+        0, row_pt, row_tiles)
+    z_bits = view_z.view(torch.int32).long()
+    emitting = entries > 0
+    sizes = torch.stack([
+        n_rows.sum(), entries.sum(),
+        torch.where(emitting, z_bits, 0xFFFFFFFF).min(),
+        torch.where(emitting, z_bits, 0).max()])
+    profiling.host_wait("bin.sizes")
+    num_rows, num_entries, z_lo, z_hi = sizes.tolist()
+    if num_entries == 0:
+        return _empty_table(m, tiles_total, num_rows, entries, dev)
+    z_min, zb, _ = _key_layout(z_lo, z_hi, tiles_total)
+    # emit: point by point, each point's rows top to bottom, each row's
+    # tiles left to right; entry k of a row is its first tile plus k, so
+    # its key is the row's key for k = 0 plus k << zb
+    ent_row = torch.repeat_interleave(
+        torch.arange(num_rows, device=dev), row_tiles,
+        output_size=num_entries)
+    first_ent = torch.cumsum(row_tiles, 0) - row_tiles
+    row_key = ((row_y * tiles_x + min_tile_x - first_ent).long() << zb
+               | (row_int[3].long() - z_min))
+    ent_key = row_key[ent_row] + (torch.arange(num_entries, device=dev)
+                                  << zb)
+    keys, order = torch.sort(ent_key, stable=True)
+    ent_pt = row_pt[ent_row[order]].to(torch.int32)
+    # ranges: where each tile's run starts and ends in the sorted keys
+    sorted_tile = (keys >> zb).to(torch.int32)
+    tiles = torch.arange(tiles_total, dtype=torch.int32, device=dev)
+    tile_start = torch.searchsorted(sorted_tile, tiles, out_int32=True)
+    tile_end = torch.searchsorted(sorted_tile, tiles, right=True,
+                                  out_int32=True)
+    return _table(ent_pt, sorted_tile, tile_start, tile_end - tile_start,
+                  entries, num_rows, num_entries)
 
 
 @profiling.spanned("bin")
@@ -273,40 +441,31 @@ def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
       opacity:   [M] activated opacities.
       valid_mask: [M] bool, False for slots that must not render.
       img_h..tile_w: image/tile geometry.
-      stream: run the two expansions through the streaming kernels of
-        ``ops/stream_gather``.  None (the default) means
-        ``config.BINNING_STREAM`` on CUDA tensors and off on CPU tensors;
-        True or ``'window'`` runs both through ``expand_attrs_windowed``,
-        ``'async'`` through its ``dma=True`` kernel, ``'prefix'`` runs the
-        first through ``expand_attrs`` (the depth key sorts the points
-        that emit no row to the tail, so its prefix contract holds there).
-        A window overrun raises.  Every route returns the same table.
+      stream: the route.  None (the default) means ``'keys'`` while
+        ``config.BINNING_STREAM`` is on: the count, emit, sort and ranges
+        kernels of ``ops/binning_cuda`` on CUDA tensors, their plain
+        version on CPU tensors, one host read.  The other routes run the two expansions:
+        True or ``'window'`` both through ``expand_attrs_windowed``,
+        ``'async'`` through its ``dma=True`` kernel, ``'prefix'`` the first
+        through ``expand_attrs`` (the depth key sorts the points that emit
+        no row to the tail, so its prefix contract holds there), False
+        through :func:`expand_with_table`; the stream_gather wrappers take
+        their plain versions on CPU tensors.  A window overrun raises.
+        Every route returns the same table.
     """
+    route = stream_route(stream)
+    if route == "keys":
+        keyed = (_table_by_keys if ndc.is_cuda else _table_by_keys_plain)
+        return keyed(ndc, view_z, inv_cov2d, opacity, valid_mask, img_h,
+                     img_w, tile_h, tile_w)
     dev = ndc.device
     m = ndc.shape[-1]
     tiles_x = math.ceil(img_w / tile_w)
-    tiles_y = math.ceil(img_h / tile_h)
-    tiles_total = tiles_x * tiles_y
-    route = stream_route(stream, ndc.is_cuda)
-
-    visible, px, py, a_s, b, c_s, disc_s, t_s = _visible_and_safe(
-        ndc, view_z, inv_cov2d, opacity, valid_mask, img_h, img_w)
-    _, _, rect_min_x, rect_max_x, rect_min_y, rect_max_y = \
-        _ellipse_tile_rect(px, py, a_s, c_s, t_s, disc_s,
-                           tile_h, tile_w, tiles_x, tiles_y)
-    # tighten the row range to rows with a nonempty clipped x-span (every
-    # emitted row then produces >= 1 entry, what the streaming windows
-    # count on)
-    y_lo, y_hi = _y_span_in_xband(
-        px, py, a_s, b, c_s, t_s, disc_s,
-        rect_min_x.float() * tile_w, rect_max_x.float() * tile_w)
-    row_min_y = _clip_i(_to_i32(torch.floor(y_lo / tile_h)),
-                        rect_min_y, rect_max_y)
-    row_max_y = _clip_i(_to_i32(torch.floor(y_hi / tile_h)) + 1,
-                        rect_min_y, rect_max_y)
-    n_rows = torch.where(visible & (rect_max_x > rect_min_x),
-                         torch.clamp(row_max_y - row_min_y, min=0),
-                         torch.zeros_like(row_min_y))
+    tiles_total = tiles_x * math.ceil(img_h / tile_h)
+    visible, q, rect_min_x, rect_max_x, row_min_y, n_rows = _point_rows(
+        ndc, view_z, inv_cov2d, opacity, valid_mask, img_h, img_w, tile_h,
+        tile_w)
+    px, py, a_s, b, c_s, t_s, disc_s = q
 
     # depth order, front to back (wrapper.py:739-742); points that emit no
     # rows sort behind every emitting point and expand to nothing, so the
@@ -373,17 +532,8 @@ def build_tile_table(ndc, view_z, inv_cov2d, opacity, valid_mask,
     tile_count = torch.bincount(sorted_tile, minlength=tiles_total)
     tile_start = torch.cumsum(tile_count, 0) - tile_count
     point_counts = torch.bincount(ent_pt, minlength=m)
-    return BinningResult(
-        sorted_point=sorted_point.to(torch.int32),
-        sorted_tile=sorted_tile.to(torch.int32),
-        entry_valid=torch.ones(num_entries, dtype=torch.bool, device=dev),
-        tile_start=tile_start.to(torch.int32),
-        tile_count=tile_count.to(torch.int32),
-        num_entries=num_entries,
-        num_rows=num_rows,
-        primitive_visible=point_counts > 0,
-        point_counts=point_counts.to(torch.int32),
-        overflow=False)
+    return _table(sorted_point, sorted_tile, tile_start, tile_count,
+                  point_counts, num_rows, num_entries)
 
 
 def concat_tables(tables, tiles_total: int) -> BinningResult:

@@ -9,8 +9,9 @@ The scene of chip_smoke.py's serving phase (1,000,000 gaussians, SH 3,
     (``aabb``, ``preprocess``, ``project``, ``bin``, ``raster_fwd`` and the
     root's remainder ``other``) its device and host self time a frame, and
     the host waits a frame by site;
-  * binning alone with the streaming expansion kernels on (the default)
-    and off, in the order on, off, off, on (CUDA events, median of 5);
+  * binning alone on the default route ('keys'), the window route and the
+    non-streaming one, in the order keys, window, off, off, window, keys
+    (CUDA events, median of 5);
   * the torch.profiler top operators by device time over 5 renders, the
     device's busy share of that window's wall time, and the number of
     device kernels and copies per render; the timeline and the spans are
@@ -90,13 +91,14 @@ def main(argv=None) -> int:
         culled = render_preprocess(params, origin, extend, planes, center,
                                    sh, pp)
         view_pos, ndc, inv_cov = _project(culled, view, proj, h, w)
-        for name, stream in (("on", True), ("off", False), ("off", False),
-                             ("on", True)):
+        for name, stream in (("keys", None), ("window", True),
+                             ("off", False), ("off", False),
+                             ("window", True), ("keys", None)):
             ms = chip_smoke.time_ms(lambda stream=stream: (
                 binning.build_tile_table(
                     ndc, view_pos[2], inv_cov, culled.opacity, culled.valid,
                     h, w, tile_h, tile_w, stream=stream)))
-            print(f"binning alone, streaming {name:3s} {ms:8.3f} ms")
+            print(f"binning alone, route {name:6s} {ms:8.3f} ms")
 
     with profiling.trace(args.trace) as prof:
         t0 = time.perf_counter()

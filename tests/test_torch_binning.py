@@ -3,10 +3,11 @@
 The JAX table is padded (128-aligned segments, capacity tail); with its
 pads stripped it must equal the port's exact table entry for entry: each
 tile's ordered point list, the per-tile counts, the per-point counts and
-visibility, all identical (integers, no tolerance).  The port's streaming
-configuration (every route; plain expansions on the CPU) must give the
-port's non-streaming table in every field, and JAX's streaming table with
-its pads stripped.
+visibility, all identical (integers, no tolerance), from the non-streaming
+route and from the default 'keys' route (its plain version on the CPU).
+Every other route (plain expansions on the CPU) must give the port's
+non-streaming table in every field, and JAX's streaming table with its pads
+stripped.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -39,20 +40,36 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_tile_table_matches_jax(case):
+_JAX_TABLES = {}
+
+
+def _jax_table(case, ndc, z, inv, op, valid):
+    """JAX's table of one case, built once for both routes."""
+    if case not in _JAX_TABLES:
+        tile_h, tile_w, img_h, img_w = case[:4]
+        _JAX_TABLES[case] = jbin.build_tile_table(
+            ndc, z, inv, op, jnp.asarray(valid), img_h, img_w, tile_h,
+            tile_w, 1 << 15, 1 << 16)
+    return _JAX_TABLES[case]
+
+
+# the non-streaming route under the cases' own ids, the 'keys' route's
+# plain version added
+@pytest.mark.parametrize(
+    "case,stream", [(c, False) for c in CASES] + [(c, "keys") for c in CASES],
+    ids=[f"case{i}" for i in range(len(CASES))]
+    + [f"keys-case{i}" for i in range(len(CASES))])
+def test_tile_table_matches_jax(case, stream):
     tile_h, tile_w, img_h, img_w, n, seed, spx = case
     rng = np.random.default_rng(seed)
     mean, inv, color, op, z, ndc = random_screen_gaussians(
         rng, n, img_h, img_w, scale_px=spx)
     valid = np.ones(n, bool)
     valid[::7] = False
-    jt = jbin.build_tile_table(ndc, z, inv, op, jnp.asarray(valid),
-                               img_h, img_w, tile_h, tile_w, 1 << 15,
-                               1 << 16)
+    jt = _jax_table(case, ndc, z, inv, op, valid)
     assert not bool(jt.overflow)
     tt = tbin.build_tile_table(T(ndc), T(z), T(inv), T(op), T(valid),
-                               img_h, img_w, tile_h, tile_w)
+                               img_h, img_w, tile_h, tile_w, stream=stream)
     sp_j, st_j = strip_jax_table(jt)
     assert tt.num_entries == int(jt.num_entries) == sp_j.shape[0] > 0
     assert tt.num_rows == int(jt.num_rows)
@@ -77,7 +94,8 @@ def test_tile_table_matches_jax(case):
                                              img_w, tile_h, tile_w)))
 
 
-@pytest.mark.parametrize("stream", [None, False, True, "async", "prefix"])
+@pytest.mark.parametrize("stream", [None, False, True, "async", "prefix",
+                                    "keys"])
 @pytest.mark.parametrize("n", [20, 0])
 def test_empty_view_gives_empty_table(n, stream):
     """Points survive culling but none emits a tile row (or there is no
@@ -117,18 +135,48 @@ def assert_tables_identical(a, b):
             assert x == y and type(x) is type(y), field
 
 
-@pytest.mark.parametrize("route", [True, "async", "prefix"])
+@pytest.mark.parametrize("route", [True, "async", "prefix", "keys"])
 @pytest.mark.parametrize("case", CASES)
-def test_stream_table_equals_non_stream_table(case, route):
+def test_stream_table_equals_non_stream_table(case, route, monkeypatch):
     arrays, geom = scene_args(case)
     args = [T(x) for x in arrays]
     plain = tbin.build_tile_table(*args, *geom, stream=False)
     assert plain.num_entries > 0
+    calls = tbin.PLAIN_CALLS
     assert_tables_identical(
         tbin.build_tile_table(*args, *geom, stream=route), plain)
-    # CPU tensors do not stream unless asked to
-    assert tbin.stream_route(None, on_cuda=False) is None
-    assert tbin.stream_route(None, on_cuda=True) == "window"
+    # only the 'keys' route on a CPU tensor takes its plain version
+    assert tbin.PLAIN_CALLS == calls + (route == "keys")
+    # the default is the 'keys' route, on any device, while
+    # BINNING_STREAM is on
+    assert tbin.stream_route(None) == "keys"
+    monkeypatch.setattr(tbin.config, "BINNING_STREAM", False)
+    assert tbin.stream_route(None) is None
+
+
+@pytest.mark.parametrize("case", ["equal_depths", "giants"])
+def test_keys_route_on_equal_depths_and_giant_splats(case):
+    """The 'keys' route's plain version against stream=False where its key
+    is narrowest (every depth equal: no depth bits) and where a few splats
+    cover most tiles (points whose rows the kernels share within a warp)."""
+    rng = np.random.default_rng(11)
+    mean, inv, color, op, z, ndc = random_screen_gaussians(
+        rng, 300, 64, 128, scale_px=(0.5, 6.0))
+    args = [T(x) for x in (ndc, z, inv, op)]
+    if case == "equal_depths":
+        args[1] = torch.full_like(args[1], 2.5)
+    else:
+        _, inv_b, _, op_b, z_b, ndc_b = random_screen_gaussians(
+            rng, 3, 64, 128, scale_px=(30.0, 40.0))
+        for k, extra in enumerate((ndc_b, z_b, inv_b, op_b)):
+            args[k] = torch.cat([args[k], T(extra)], dim=-1)
+        args[3][-3:] = 0.95
+    args.append(torch.ones(args[1].shape[0], dtype=torch.bool))
+    plain = tbin.build_tile_table(*args, 64, 128, 8, 16, stream=False)
+    keys = tbin.build_tile_table(*args, 64, 128, 8, 16, stream="keys")
+    assert_tables_identical(keys, plain)
+    if case == "giants":
+        assert int(plain.point_counts.max()) > 32
 
 
 def test_stream_table_matches_jax_stream_table():
@@ -184,7 +232,7 @@ def test_window_overrun_raises():
         tbin._check_windows(torch.tensor(True), torch.tensor(False))
     tbin._check_windows(torch.tensor(True), torch.tensor(True))
     with pytest.raises(ValueError):
-        tbin.stream_route("dma", on_cuda=True)
+        tbin.stream_route("dma")
 
 
 @pytest.mark.parametrize("empty_share", [0.3, 0.0])

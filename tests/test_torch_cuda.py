@@ -15,7 +15,8 @@ tests/test_raster_pallas.py), weight_sum 2e-3, frag_count 0.5 and
 err_square_sum 1e-3 scaled; the kernel adds per-entry sums with atomics
 in no fixed order and carries its prefix in float32.  The four
 stream_gather kernels copy words and count ranks: tolerance 0, and the
-window kernels' ``ok`` bit for bit.
+window kernels' ``ok`` bit for bit; the binning tables of every route are
+integers and equal field for field.
 """
 import collections
 import warnings
@@ -27,7 +28,7 @@ import torch
 from litegs_torch import config, evaluation
 from litegs_torch.data import synthetic
 from litegs_torch.data import synthetic_train
-from litegs_torch.ops import binning, raster_cuda, raster_plain
+from litegs_torch.ops import binning, binning_cuda, raster_cuda, raster_plain
 from litegs_torch.ops import stream_gather
 from litegs_torch.scene import create_gaussians, pad_params
 from litegs_torch.training import optimizer, statistics
@@ -730,10 +731,41 @@ def test_gather_blocks_writes_every_word_on_dirty_memory(cuda_device):
             attrs, src_lo)), what
 
 
+def keys_kernels():
+    """The 'keys' route's launches for one view with entries: count, emit
+    and ranges once, the sort's two kernels once per pass (one to eight),
+    as binning_cuda counted them."""
+    passes = binning_cuda.LAUNCHES["bin_sort_count_kernel"]
+    assert 1 <= passes <= 8
+    return {"bin_count_kernel": 1, "bin_emit_kernel": 1,
+            "bin_sort_count_kernel": passes,
+            "bin_sort_scatter_kernel": passes, "bin_ranges_kernel": 1}
+
+
+def reset_binning_counts():
+    stream_gather.reset_counts()
+    binning_cuda.reset_counts()
+    binning.PLAIN_CALLS = 0
+
+
+def launched_kernels():
+    return {k: v for k, v in {**stream_gather.LAUNCHES,
+                              **binning_cuda.LAUNCHES}.items() if v}
+
+
+def assert_same_table(off, on, what):
+    for field in off._fields:
+        a, b = getattr(off, field), getattr(on, field)
+        same = (a.dtype == b.dtype and torch.equal(a, b)
+                if torch.is_tensor(a) else a == b and type(a) is type(b))
+        assert same, (what, field)
+
+
 @pytest.mark.cuda
 def test_stream_routes_give_identical_tables(cuda_device):
-    """One view's table with the streaming kernels on (every route) and
-    off, and the render's default route."""
+    """One view's table from every route against the non-streaming one:
+    the default (None) and 'keys' run the binning_cuda kernels, the
+    others the stream_gather kernels."""
     img_h, img_w = 120, 200
     mean, inv, color, op, z, ndc = screen_scene(5000, 7, img_h, img_w,
                                                 (0.5, 20.0), cuda_device)
@@ -742,28 +774,114 @@ def test_stream_routes_give_identical_tables(cuda_device):
     args = (ndc, z, inv, op, valid, img_h, img_w, 8, 16)
     off = binning.build_tile_table(*args, stream=False)
     assert off.num_entries > 10000
-    for route in (None, True, "async", "prefix"):
-        stream_gather.reset_counts()
+    for route in (None, "keys", True, "async", "prefix"):
+        reset_binning_counts()
         on = binning.build_tile_table(*args, stream=route)
-        launched = {k for k, v in stream_gather.LAUNCHES.items() if v}
-        assert launched == {
-            None: {"expand_window_kernel"}, True: {"expand_window_kernel"},
-            "async": {"expand_window_async_kernel"},
-            "prefix": {"expand_prefix_kernel", "expand_window_kernel"},
+        expect = keys_kernels() if route in (None, "keys") else {
+            True: {"expand_window_kernel": 2},
+            "async": {"expand_window_async_kernel": 2},
+            "prefix": {"expand_prefix_kernel": 1, "expand_window_kernel": 1},
         }[route]
-        assert sum(stream_gather.LAUNCHES.values()) == 2
-        assert stream_gather.PLAIN_CALLS == 0
-        for field in off._fields:
-            a, b = getattr(off, field), getattr(on, field)
-            assert torch.equal(a, b) if torch.is_tensor(a) else a == b, \
-                (route, field)
+        assert launched_kernels() == expect
+        assert stream_gather.PLAIN_CALLS == 0 and binning.PLAIN_CALLS == 0
+        assert_same_table(off, on, route)
+
+
+def keys_scene(case, dev):
+    """The binning arguments of one card case of the 'keys' route."""
+    if case == "screen":
+        mean, inv, color, op, z, ndc = screen_scene(20000, 11, 240, 320,
+                                                    (0.5, 20.0), dev)
+        return (ndc, z, inv, op, torch.ones_like(op, dtype=torch.bool),
+                240, 320, 8, 16)
+    if case == "giants":
+        # eight splats of sigma 60-120 px, each over more than 1,000 of the
+        # 2,400 tiles, among small ones
+        small = screen_scene(4000, 12, 480, 640, (0.5, 8.0), dev)
+        big = screen_scene(8, 13, 480, 640, (60.0, 120.0), dev,
+                           opacity=(0.9, 0.99))
+        mean, inv, color, op, z, ndc = [torch.cat([a, b], dim=-1)
+                                        for a, b in zip(small, big)]
+        return (ndc, z, inv, op, torch.ones_like(op, dtype=torch.bool),
+                480, 640, 8, 16)
+    if case == "edges":
+        # alpha regions ending on the 8-pixel edges, centres on tile edges
+        mean, inv, color, op, z, ndc = screen_scene(6000, 14, 128, 256,
+                                                    (1.0, 12.0), dev,
+                                                    graze=True)
+        mx = torch.round(mean[0] / 16) * 16
+        ndc = ndc.clone()
+        ndc[0, ::3] = ((mx + 0.5) / 256 * 2 - 1)[::3]
+        return (ndc, z, inv, op, torch.ones_like(op, dtype=torch.bool),
+                128, 256, 8, 16)
+    if case == "equal_depths":
+        mean, inv, color, op, z, ndc = screen_scene(8000, 15, 120, 200,
+                                                    (0.5, 20.0), dev)
+        z = torch.full_like(z, 3.0)
+        z[::5] = 2.0
+        return (ndc, z, inv, op, torch.ones_like(op, dtype=torch.bool),
+                120, 200, 8, 16)
+    assert case == "tile_32x24"
+    mean, inv, color, op, z, ndc = screen_scene(20000, 16, 240, 320,
+                                                (0.5, 20.0), dev)
+    return (ndc, z, inv, op, torch.ones_like(op, dtype=torch.bool),
+            240, 320, 32, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["screen", "giants", "edges",
+                                  "equal_depths", "tile_32x24"])
+def test_keys_route_equals_non_stream_table(cuda_device, case):
+    """The 'keys' route's table equals stream=False's field for field: its
+    kernels launched, no plain version, one host wait, the sizes a render
+    reports from the table."""
+    args = keys_scene(case, cuda_device)
+    off = binning.build_tile_table(*args, stream=False)
+    assert off.num_entries > 0
+    if case == "giants":
+        assert int(off.point_counts.max()) > 1000
+    reset_binning_counts()
+    waits = profiling.HOST_WAITS.copy()
+    on = binning.build_tile_table(*args)
+    torch.cuda.synchronize()
+    assert profiling.HOST_WAITS - waits == {"bin.sizes": 1}
+    assert launched_kernels() == keys_kernels()
+    assert stream_gather.PLAIN_CALLS == 0 and binning.PLAIN_CALLS == 0
+    assert_same_table(off, on, case)
+    assert (on.num_rows, on.num_entries) == (off.num_rows, off.num_entries)
+    assert int(on.tile_count.sum()) == on.num_entries
+    assert int(on.point_counts.sum()) == on.num_entries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,key_bits", [(1, 8), (3000, 13), (4096, 20),
+                                        (70001, 40), (300000, 62)])
+def test_sort_pairs_is_a_stable_sort(cuda_device, e, key_bits):
+    """The 'keys' route's radix sort against torch's stable sort on keys
+    of key_bits bits with many repeats, E around and far from its 4096-
+    entry tiles: the same keys, and the points in the same order."""
+    g = torch.Generator(device="cpu").manual_seed(e)
+    pool = torch.randint(0, 1 << key_bits, (max(e // 5, 1),), generator=g)
+    keys = pool[torch.randint(0, pool.numel(), (e,), generator=g)]
+    keys = keys.to(cuda_device)
+    points = torch.randperm(e, generator=g).to(torch.int32).to(cuda_device)
+    want, order = torch.sort(keys, stable=True)
+    binning_cuda.reset_counts()
+    got_keys, got_points = binning_cuda.sort_pairs(keys.clone(),
+                                                   points.clone(), key_bits)
+    passes = -(-key_bits // 8)
+    assert binning_cuda.LAUNCHES["bin_sort_count_kernel"] == passes
+    assert binning_cuda.LAUNCHES["bin_sort_scatter_kernel"] == passes
+    assert torch.equal(got_keys, want)
+    assert torch.equal(got_points, points[order])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [5000, 0])
 def test_view_without_rows_gives_empty_table_on_every_route(cuda_device, n):
     """Points survive culling but none emits a tile row: the default route
-    on the card, and every other, returns the empty table."""
+    on the card, and every other, returns the empty table; the 'keys'
+    route counts (when there are points) and launches nothing else."""
     img_h, img_w = 120, 200
     mean, inv, color, op, z, ndc = screen_scene(5000, 7, img_h, img_w,
                                                 (0.5, 20.0), cuda_device)
@@ -772,15 +890,15 @@ def test_view_without_rows_gives_empty_table_on_every_route(cuda_device, n):
             img_h, img_w, 8, 16)
     off = binning.build_tile_table(*args, stream=False)
     assert off.num_entries == 0 and off.num_rows == 0
-    for route in (None, True, "async", "prefix"):
-        stream_gather.reset_counts()
+    for route in (None, "keys", True, "async", "prefix"):
+        reset_binning_counts()
         on = binning.build_tile_table(*args, stream=route)
-        assert stream_gather.PLAIN_CALLS == 0
+        assert stream_gather.PLAIN_CALLS == 0 and binning.PLAIN_CALLS == 0
         assert not any(stream_gather.LAUNCHES.values())
-        for field in off._fields:
-            a, b = getattr(off, field), getattr(on, field)
-            assert torch.equal(a, b) if torch.is_tensor(a) else a == b, \
-                (route, field)
+        counted = {"bin_count_kernel": 1} if n and route in (None, "keys") \
+            else {}
+        assert launched_kernels() == counted, route
+        assert_same_table(off, on, route)
 
 
 @pytest.mark.cuda

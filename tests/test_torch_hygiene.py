@@ -164,9 +164,9 @@ def test_streaming_binning_is_the_default_on_cuda_tensors():
     from litegs_torch import config
     from litegs_torch.ops import binning
     assert config.BINNING_STREAM is True
-    assert binning.stream_route(None, on_cuda=True) == "window"
-    assert binning.stream_route(None, on_cuda=False) is None
-    assert binning.stream_route(False, on_cuda=True) is None
+    assert binning.stream_route(None) == "keys"
+    assert binning.stream_route(True) == "window"
+    assert binning.stream_route(False) is None
 
 
 def test_stream_gather_takes_the_plain_version_only_on_cpu_tensors():
@@ -191,3 +191,20 @@ def test_stream_gather_takes_the_plain_version_only_on_cpu_tensors():
     with pytest.raises(RuntimeError, match="nvcc not found"):
         stream_gather._launch("expand_prefix_kernel", "litegs_expand_prefix")
     assert stream_gather.LAUNCHES == launches
+
+
+def test_binning_kernels_take_only_cuda_tensors():
+    """The 'keys' route's wrappers refuse tensors off the card, and without
+    a compiler the kernel route raises instead of falling back."""
+    from litegs_torch.ops import _kernels, binning_cuda
+    z = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        binning_cuda.point_inputs(torch.zeros(4, 4), z, torch.zeros(3, 4), z,
+                                  torch.ones(4, dtype=torch.bool))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the kernels build")
+    assert _kernels.CSRC.joinpath("binning.cu").exists()
+    launches = dict(binning_cuda.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        binning_cuda._launch("bin_count_kernel", "litegs_bin_count")
+    assert binning_cuda.LAUNCHES == launches

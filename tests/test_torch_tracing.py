@@ -19,10 +19,10 @@ STAGES = ("preprocess", "project", "bin", "raster_fwd", "loss", "backward",
 # plain versions split the table into one group of tiles forward and one
 # backward (raster.groups: a nonzero, a copy, a sum and three
 # repeat_interleave each)
-STEP_WAITS = {"cull.nonzero": 1, "bin.total": 2, "bin.bincount": 4,
+STEP_WAITS = {"cull.nonzero": 1, "bin.sizes": 1,
               "raster.check_table": 1, "raster.groups": 12,
               "adam.chunk_mask": 1, "adam.lr_copy": 6}
-EVAL_WAITS = {"cull.nonzero": 1, "bin.total": 2, "bin.bincount": 4,
+EVAL_WAITS = {"cull.nonzero": 1, "bin.sizes": 1,
               "raster.check_table": 1, "raster.groups": 6}
 H, W = 32, 48
 
