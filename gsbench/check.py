@@ -55,6 +55,60 @@ def train_numbers(prog: dict, ref: dict) -> dict:
             "step_gap": max(step_gaps[k] for k in keep)}
 
 
+def stats_numbers(prog: dict, ref: dict) -> dict:
+    """stats_gap: the worst statistics field's ||prog - ref|| / ||ref||
+    (a gap of norms would not see rounding, which averages out in a
+    norm)."""
+    return {"stats_gap": max(field_gaps(prog, ref).values())}
+
+
+def field_gaps(prog: dict, ref: dict) -> dict:
+    out = {}
+    for k, r in ref.items():
+        r = r.double()
+        d = prog[k].double().to(r.device) - r
+        out[k] = float(torch.linalg.vector_norm(d)
+                       / max(float(torch.linalg.vector_norm(r)), 1e-30))
+    return out
+
+
+# a value of a primitive disagrees beyond rounding where
+# |prog - ref| > EVENT_REL |ref| + EVENT_ABS max |ref of its leaf|
+EVENT_REL, EVENT_ABS = 1e-5, 1e-6
+
+
+def disagreeing(prog: dict, ref: dict, n: int):
+    """[n] bool: the primitive has a parameter or moment that disagrees
+    (NaN disagrees)."""
+    bad = None
+    for k, r in ref.items():
+        r = r[..., :n].reshape(-1, n)
+        p = prog[k][..., :n].reshape(-1, n).to(r.device)
+        tol = EVENT_REL * r.abs() + EVENT_ABS * r.abs().max()
+        off = ~((p - r).abs() <= tol)
+        bad = off.any(0) if bad is None else bad | off.any(0)
+    return bad
+
+
+def event_numbers(prog: dict, prog_active: int, ref: dict,
+                  ref_active: int) -> dict:
+    """An epoch boundary's output (parameters and moments [..., capacity])
+    against the reference's replay of it.  event_count_gap: |live
+    primitives - reference's|; event_mismatch_share: the share of the
+    reference's live primitives whose values disagree (those one side
+    lacks count as disagreeing); event_gap: the worst leaf's gap of norms
+    over the live primitives both sides hold (``leaf_gaps``)."""
+    n = min(prog_active, ref_active)
+    bad = int(disagreeing(prog, ref, n).sum())
+    gaps = leaf_gaps({k: v[..., :n] for k, v in prog.items()},
+                     {k: v[..., :n].to(prog[k].device)
+                      for k, v in ref.items()})
+    return {"event_count_gap": abs(prog_active - ref_active),
+            "event_mismatch_share": (bad + abs(prog_active - ref_active))
+            / max(ref_active, 1),
+            "event_gap": max(gaps.values())}
+
+
 def image_numbers(prog_imgs, ref_imgs) -> dict:
     """img_rms_gap: the worst frame's root-mean-square pixel gap;
     img_max_gap: the largest pixel gap of any frame."""

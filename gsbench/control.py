@@ -7,11 +7,14 @@ reference, then puts in the program's place the reference computed with
 the rasterizer's inputs and each pair's alpha rounded to bfloat16 (the
 control), and the reference with each fault of ``FAULTS`` planted; it
 prints the cell's numbers for each, one JSON line per seed and variant,
-against the cell's limits.  The benchmark's own runs do not run it.
+against the cell's limits.  A loop module with a ``readings(run)`` of its
+own (``loops/densify.py``) reads its variants, and the program's numbers
+beside them, its own way.  The benchmark's own runs do not run it.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 
@@ -68,6 +71,17 @@ def serve_readings(run, variants=SERVE_VARIANTS) -> dict:
     return out
 
 
+def readings_of(run):
+    """The cell's readings: its loop module's ``readings`` where it has
+    one, else those of its kind of loop."""
+    loop = importlib.import_module(f"gsbench.loops.{run.traffic['loop']}")
+    own = getattr(loop, "readings", None)
+    if own is not None:
+        return own
+    kind = run.traffic.get("kind", run.traffic["loop"])
+    return train_readings if kind == "train" else serve_readings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -81,8 +95,7 @@ def main(argv=None) -> int:
     lim = check.limits(args.workload)
     for seed in args.seeds:
         run = new_run(args.workload, seed, "cuda")
-        fn = (train_readings if run.traffic["loop"] == "train"
-              else serve_readings)
+        fn = readings_of(run)
         for variant, numbers in fn(run).items():
             print(json.dumps({"cell": args.workload, "seed": seed,
                               "variant": variant, "numbers": numbers,

@@ -107,6 +107,9 @@ def setup(run):
         if i == 0:
             m1 = {kk: v.detach().cpu().clone()
                   for kk, v in state.adam.exp_avg.items()}
+            # the first step's statistics (update_stats returns new
+            # tensors: later steps leave these as they are)
+            run.stats1 = stats
     p3 = {kk: v.detach().cpu() for kk, v in state.params.fields().items()}
     run.prog = {"losses": losses, "m1": m1,
                 "delta": {kk: p3[kk] - run.p0[kk] for kk in p3}}
@@ -115,20 +118,28 @@ def setup(run):
     _sync(run)
 
 
+def _advance(run):
+    """Once an epoch's frames are all taken, start the next epoch on the
+    Trainer's next permutation (drawn after the epoch's boundary, as
+    ``Trainer.run_epoch`` draws it)."""
+    nv = run.config["train_views"]
+    if run.pos >= nv:
+        run.epoch += 1
+        run.perm = torch.randperm(nv, generator=run.trainer.generator).tolist()
+        run.pos = 0
+
+
 def _slices(run):
-    """The window's calls: (epoch, frames, epoch ends after them)."""
+    """The window's calls: (epoch, frames, epoch ends after them).  A
+    second call after a first that stopped on an epoch's end begins with
+    the next epoch."""
     nv = run.config["train_views"]
     size = max(1, math.ceil(nv * run.traffic["slice_share"]))
     while True:
+        _advance(run)
         frames = run.perm[run.pos:run.pos + size]
         run.pos += len(frames)
-        end = run.pos >= nv
-        yield run.epoch, frames, end
-        if end:
-            run.epoch += 1
-            run.perm = torch.randperm(
-                nv, generator=run.trainer.generator).tolist()
-            run.pos = 0
+        yield run.epoch, frames, run.pos >= nv
 
 
 def window(run):
@@ -180,9 +191,10 @@ def _ref_cfg(run):
                 chunk=run.pp.cluster_size)
 
 
-def reference_steps(run, low=None, fault=None):
+def reference_steps(run, low=None, fault=None, first_stats=None):
     """The reference's check steps from the benchmark's parameters:
-    {"losses", "grad", "delta"}."""
+    {"losses", "grad", "delta"}; ``first_stats``
+    (``reference.statistics.zeros``) gets the first step's statistics."""
     op = run.op
     opt = {k: getattr(op, k) for k in (
         "position_lr_init", "position_lr_final", "position_lr_max_steps",
@@ -194,7 +206,7 @@ def reference_steps(run, low=None, fault=None):
     losses, first = ref_train.run_steps(
         raw, run.active, cams, gts, run.step0, opt=opt,
         spatial_scale=run.spatial_scale, max_pairs=run.max_pairs, low=low,
-        fault=fault, **_ref_cfg(run))
+        fault=fault, first_stats=first_stats, **_ref_cfg(run))
     delta = {k: raw[k].cpu() - run.p0[k] for k in raw}
     return {"losses": losses, "grad": {k: v.cpu() for k, v in first.items()},
             "delta": delta}

@@ -3,7 +3,9 @@ from __future__ import annotations
 
 
 def loop(run) -> str:
-    return run.traffic["loop"]
+    """The mix's kind of loop ("train", "serve"): its ``kind`` where it
+    names one, else the module it runs (``loop``)."""
+    return run.traffic.get("kind", run.traffic["loop"])
 
 
 def rate(run, kind: str):

@@ -2,8 +2,10 @@
 device synchronize), in ms."""
 import numpy as np
 
+from gsbench.metrics._read import loop
+
 
 def read(run):
-    if run.traffic["loop"] != "serve":
+    if loop(run) != "serve":
         return None
     return float(np.percentile(np.asarray(run.window["latencies"]) * 1e3, 95))

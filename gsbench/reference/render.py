@@ -303,7 +303,7 @@ def tile_blocks(table: Table, max_pairs: int, npix: int):
 
 def blend_block(table: Table, t0: int, t1: int, mean_pix, inv_cov, color,
                 opacity, tile_w: int, tile_h: int, tiles_x: int,
-                low=None, counts=False):
+                low=None, counts=False, pairs=False):
     """Front-to-back blend of the tiles [t0, t1) (differentiable).
 
     alpha = min(o exp(-q/2), 255/256), straight-through at the clamp,
@@ -314,7 +314,10 @@ def blend_block(table: Table, t0: int, t1: int, mean_pix, inv_cov, color,
     each pair's alpha to that type, as a kernel computing in it would.
     Returns (colour [t1 - t0, C, P], transmittance [t1 - t0, P]) and with
     ``counts`` also (contributing pairs, entries up to the tile's last
-    stop, the points of those entries) as (int, int, point ids).
+    stop, the points of those entries) as (int, int, point ids), or with
+    ``pairs`` (each entry's point [E], each pair's unclamped alpha
+    o exp(-q/2) [P, E], its blend weight alpha T [P, E], 0 where the pair
+    does not contribute): the per-pair values the statistics sum.
     """
     e0 = int(table.tile_start[t0])
     e1 = int(table.tile_start[t1 - 1] + table.tile_count[t1 - 1])
@@ -363,6 +366,8 @@ def blend_block(table: Table, t0: int, t1: int, mean_pix, inv_cov, color,
     col = torch.stack([tile_sums(color[ch][sp][None] * weight)
                        for ch in range(color.shape[0])], 1)
     trans = torch.exp(tile_sums(log_t))
+    if pairs:
+        return col, trans, (sp, raw, weight)
     if not counts:
         return col, trans
     walked = live.any(0)

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from . import render as R
+from . import statistics as S
 
 FIELDS = ("xyz", "scale", "rot", "sh_0", "sh_rest", "opacity")
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-15
@@ -77,7 +78,7 @@ def learning_rates(opt: dict, spatial_scale: float, step: int) -> dict:
 
 def grads(raw, active: int, cam, gt, sh_degree: int, img_h: int, img_w: int,
           tile: tuple, chunk: int, lambda_dssim: float, max_pairs: int,
-          low=None, loss_rows=None):
+          low=None, loss_rows=None, stats=None):
     """(loss, {field: gradient}, visible chunk ids) of one view.
 
     The blend runs twice per block: once without autograd for the image
@@ -85,6 +86,8 @@ def grads(raw, active: int, cam, gt, sh_degree: int, img_h: int, img_w: int,
     that block's tiles back to the points; autograd takes it on through
     projection, SH and activation to the raw parameters.  ``loss_rows``
     takes the loss over the image's first rows only (a planted fault).
+    ``stats`` (a dict of ``statistics.zeros``) gets the view's
+    statistics added, from the same blend and backward.
     """
     tile_h, tile_w = tile
     leaves = {k: v.detach().requires_grad_(True) for k, v in raw.items()}
@@ -102,10 +105,23 @@ def grads(raw, active: int, cam, gt, sh_degree: int, img_h: int, img_w: int,
     pts = [t.detach().requires_grad_(True) for t in
            (proj.mean_pix, proj.inv_cov, vis.color, vis.opacity)]
     tiles_x = math.ceil(img_w / tile_w)
+    sums = None if stats is None else S.view_sums(pts[3].shape[0],
+                                                  pts[3].device)
     for t0, t1 in R.tile_blocks(table, max_pairs, tile_h * tile_w):
-        col, _ = R.blend_block(table, t0, t1, *pts, tile_w, tile_h, tiles_x,
-                               low=low)
-        col.backward(d_tiles[t0:t1])
+        out = R.blend_block(table, t0, t1, *pts, tile_w, tile_h, tiles_x,
+                            low=low, pairs=stats is not None)
+        if stats is not None:
+            sp, raw, weight = out[2]
+            raw.retain_grad()
+        out[0].backward(d_tiles[t0:t1])
+        if stats is not None:
+            S.add_pairs(sums, sp, raw.detach(), raw.grad, weight.detach(),
+                        pts[3].detach())
+    if stats is not None:
+        touched = torch.bincount(table.point, minlength=sums.shape[1]) > 0
+        d_mean = (pts[0].grad if pts[0].grad is not None
+                  else torch.zeros_like(pts[0]))
+        S.add_view(stats, vis.ids, chunk, touched, sums, d_mean, img_h, img_w)
     outs = [proj.mean_pix, proj.inv_cov, vis.color, vis.opacity]
     torch.autograd.backward(outs, [p.grad if p.grad is not None
                                    else torch.zeros_like(p) for p in pts])
@@ -135,11 +151,13 @@ def adam(raw, m, v, g, lrs: dict, chunk_ids, chunk: int):
 
 def run_steps(raw, active: int, cams, gts, step0: int, sh_degree: int,
               img_h: int, img_w: int, tile: tuple, chunk: int, opt: dict,
-              spatial_scale: float, max_pairs: int, low=None, fault=None):
+              spatial_scale: float, max_pairs: int, low=None, fault=None,
+              first_stats=None):
     """Train ``len(cams)`` steps from ``raw`` with zero moments, in place.
 
     Returns (losses, the first step's gradients).  ``fault`` (a name in
-    ``FAULTS``) plants one of the faults the comparison has to catch.
+    ``FAULTS``) plants one of the faults the comparison has to catch;
+    ``first_stats`` gets the first step's statistics (``grads``).
     """
     m = {k: torch.zeros_like(v) for k, v in raw.items()}
     v = {k: torch.zeros_like(x) for k, x in raw.items()}
@@ -148,7 +166,8 @@ def run_steps(raw, active: int, cams, gts, step0: int, sh_degree: int,
         loss, g, ids = grads(
             raw, active, cam, gt, sh_degree, img_h, img_w, tile, chunk,
             opt["lambda_dssim"], max_pairs, low=low,
-            loss_rows=img_h // 2 if fault == "half_batch" else None)
+            loss_rows=img_h // 2 if fault == "half_batch" else None,
+            stats=first_stats if i == 0 else None)
         if fault == "colour_grad_doubled":
             g["sh_0"], g["sh_rest"] = 2 * g["sh_0"], 2 * g["sh_rest"]
         losses.append(float(loss))

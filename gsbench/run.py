@@ -69,16 +69,18 @@ def forbidden_modules():
 
 
 def _program_counters():
-    from litegs_torch.ops import raster_plain, stream_gather
+    from litegs_torch.ops import binning, raster_plain, stream_gather
     return (stream_gather.PLAIN_CALLS + raster_plain.CALLS
-            + raster_plain.BACKWARD_CALLS)
+            + raster_plain.BACKWARD_CALLS + binning.PLAIN_CALLS)
 
 
 def new_run(workload: str, seed: int, device: str, spec: dict | None = None,
-            config_update: dict | None = None):
-    """The state of one run of a cell: its configuration (with
-    ``config_update``'s keys replaced: the CPU tests' tiny sizes), its
-    traffic mix, the seed and the device.  TF32 is switched off."""
+            config_update: dict | None = None,
+            traffic_update: dict | None = None):
+    """The state of one run of a cell: its configuration and traffic mix
+    (with ``config_update``'s and ``traffic_update``'s keys replaced: the
+    CPU tests' tiny sizes), the seed and the device.  TF32 is switched
+    off."""
     import torch
     spec = load_spec() if spec is None else spec
     cell = _named(spec["workloads"], workload)
@@ -87,6 +89,7 @@ def new_run(workload: str, seed: int, device: str, spec: dict | None = None,
     config.update(config_update or {})
     traffic = json.loads((PKG / "traffic" / f"{cell['traffic']}.json")
                          .read_text())
+    traffic.update(traffic_update or {})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return types.SimpleNamespace(
@@ -97,12 +100,14 @@ def new_run(workload: str, seed: int, device: str, spec: dict | None = None,
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t0: float | None = None,
-             spec: dict | None = None, config_update: dict | None = None):
+             spec: dict | None = None, config_update: dict | None = None,
+             traffic_update: dict | None = None):
     """Run one cell; returns (result dict, info lines, check lines)."""
     import torch
     t0 = T0 if t0 is None else t0
     spec = load_spec() if spec is None else spec
-    run = new_run(workload, seed, device, spec, config_update)
+    run = new_run(workload, seed, device, spec, config_update,
+                  traffic_update)
     run.seconds = seconds
     dev = run.device
     loop = importlib.import_module(f"gsbench.loops.{run.traffic['loop']}")
@@ -169,9 +174,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         info.append(f"traced views {t['views']} kernels {t['kernels']}")
         info += [f"work view {i}: {json.dumps(w)}"
                  for i, w in enumerate(run.work)]
-    if "slice_ends_s" in run.window:
-        info.append("window slice ends (s) " + " ".join(
-            f"{t:.4f}" for t in run.window["slice_ends_s"]))
+    for key, ends in run.window.items():
+        if key.endswith("_ends_s"):
+            info.append(f"window {key[:-len('_ends_s')]} ends (s) "
+                        + " ".join(f"{t:.4f}" for t in ends))
     if getattr(run, "detail", None):
         info.append("detail " + json.dumps(run.detail))
     result["check"] = shown

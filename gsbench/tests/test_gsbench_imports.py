@@ -46,7 +46,8 @@ def test_reference_imports_nothing_of_the_program():
     for path in files:
         assert set(_roots(path)) <= {"__future__", "math", "typing", "numpy",
                                      "torch"}, path
-    code = ("import sys, gsbench.reference.render, gsbench.reference.train;"
+    code = ("import sys, gsbench.reference.render, gsbench.reference.train,"
+            " gsbench.reference.statistics, gsbench.reference.densify;"
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
