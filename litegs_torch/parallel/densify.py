@@ -29,6 +29,7 @@ import torch
 from ..config import DensifyParams
 from ..training import densify as dens
 from ..training import statistics
+from ..utils import profiling
 from . import add_packed, all_gather, collective, shard_len, world
 
 
@@ -151,11 +152,13 @@ def sharded_select(params, stats_local: statistics.StatsState,
         want = ((statistics.mean_grad_norm(stats)
                  >= dp.densify_grad_threshold) & active)
         per_shard = all_gather(want.sum().reshape(1))[:, 0]
+        profiling.host_wait("densify.want")
         budget = min(int(per_shard.sum()), n - active_count)
         budget = (budget // chunk_size) * chunk_size
         rank_of = per_shard[:rank].sum() + torch.cumsum(want.long(), 0) - 1
         sel = want & (rank_of < budget)
     else:
+        profiling.host_wait("densify.prune_num")
         prune_num = int(collective("all_reduce",
                                    prune_local.sum().reshape(1)))
         budget = dens.taming_budget(prune_num, active_count, epoch, dp,
@@ -169,6 +172,7 @@ def sharded_select(params, stats_local: statistics.StatsState,
     return _gather_mask(sel, s, n), _gather_mask(prune_local, s, n)
 
 
+@profiling.spanned("densify", device=dens.model_device)
 def sharded_densify_step(params, adam, stats_local, active_count: int,
                          epoch: int, dp: DensifyParams, densify_until: int,
                          init_points_num: int, screen_extent: float,

@@ -38,10 +38,10 @@ from ..scene.gaussians import create_gaussians, pad_params, pad_to_chunk
 from ..training import densify as tdensify
 from ..training import statistics
 from ..training.optimizer import init_adam
-from ..training.trainer import (CameraBatch, TrainState, make_eval_render,
-                                masked_chunk_aabb)
+from ..training.trainer import (CameraBatch, TrainState, _state_device,
+                                make_eval_render, masked_chunk_aabb)
 from ..ops import losses
-from ..utils import resolve_device
+from ..utils import profiling, resolve_device
 from . import all_gather, make_parallel_train_step, world
 from . import densify as pdensify
 
@@ -172,8 +172,10 @@ class ParallelTrainer:
         return state, stats, {"loss": float(np.mean(got[:, 0])),
                               "psnr": float(np.mean(got[:, 1]))}
 
+    @profiling.spanned("boundary", device=_state_device)
     def epoch_boundary(self, state: TrainState, stats, epoch: int):
-        """The sharded densification, then the Morton resort."""
+        """The sharded densification, then the Morton resort, in a span
+        ``boundary``."""
         params, adam, active, did = pdensify.sharded_densify_step(
             state.params, state.adam, stats, state.active_count, epoch,
             self.dp, self.densify_until, self.init_points_num,

@@ -23,6 +23,13 @@ Semantics preserved from DensityControllerTamingGS:
 Random draws come from a ``torch.Generator`` (on the CPU, so a seed gives
 the same draws on any device), or are passed in explicitly.  Every
 function returns new tensors; ``active_count`` is a Python int.
+
+Spans: ``densify_step`` runs in a span ``densify`` and ``spatial_refine``
+in ``resort`` (children of the trainer's ``boundary``).  Every host read
+is marked with ``profiling.host_wait`` under a site ``densify.*``: the
+counts read back (``selected``, ``want``, ``prune_num``, ``n_prune``),
+the copies of the draws to the device (``draws``) and the ids of the
+appended primitives' sources (``copies``).
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from ..config import DensifyParams
 from ..ops import projection
 from ..scene.gaussians import GaussianModel
 from ..scene.morton import spatial_sort_indices
+from ..utils import profiling
 from . import statistics
 from .optimizer import AdamState
 
@@ -47,18 +55,16 @@ def densify_until_epoch(dp: DensifyParams, total_epochs: int) -> int:
             * dp.opacity_reset_interval + 1)
 
 
+def model_device(params: GaussianModel, *args, **kwargs) -> torch.device:
+    """The device of a span whose call's first argument is the model."""
+    return params.xyz.device
+
+
 def _take(params: GaussianModel, adam: AdamState, perm):
     """Permute every primitive (last axis) of the model and its moments."""
     return (params.mapped(lambda x: x[..., perm]),
             AdamState(*[{k: v[..., perm] for k, v in d.items()}
                         for d in adam]))
-
-
-def _scatter(t, dest, src, sel):
-    """t[..., dest[i]] = src[..., i] where sel[i], on a copy of t."""
-    out = t.clone()
-    out[..., dest[sel]] = src[..., sel]
-    return out
 
 
 def get_prune_mask(params: GaussianModel, stats: statistics.StatsState,
@@ -111,11 +117,13 @@ def taming_sample_keys(score, uniform):
 
 def draw_uniform(n: int, generator: torch.Generator, device):
     """[n] uniform draws in [1e-10, 1) from ``generator``."""
+    profiling.host_wait("densify.draws")
     return torch.rand(n, generator=generator).clamp_(min=1e-10).to(device)
 
 
 def draw_normal(n: int, generator: torch.Generator, device):
     """[3, n] standard normal draws from ``generator``."""
+    profiling.host_wait("densify.draws")
     return torch.randn((3, n), generator=generator).to(device)
 
 
@@ -140,17 +148,20 @@ def split_and_clone(params: GaussianModel, adam: AdamState,
     active_mask = idx < active_count
 
     if selected is not None:
+        profiling.host_wait("densify.selected")
         budget = int(selected.sum())
     elif dp.densify_mode == "official":
         # original-3DGS criterion: mean NDC positional-gradient norm over
         # the statistics window >= threshold (no primitive budget)
         want = ((statistics.mean_grad_norm(stats)
                  >= dp.densify_grad_threshold) & active_mask)
+        profiling.host_wait("densify.want")
         budget = min(int(want.sum()), n - active_count)
         budget = (budget // chunk_size) * chunk_size
         rank_of = torch.cumsum(want.int(), 0) - 1
         selected = want & (rank_of < budget)
     else:
+        profiling.host_wait("densify.prune_num")
         prune_num = int(get_prune_mask(params, stats, active_mask, dp).sum())
         budget = taming_budget(prune_num, active_count, epoch, dp,
                                densify_until, init_points_num, chunk_size, n)
@@ -163,37 +174,42 @@ def split_and_clone(params: GaussianModel, adam: AdamState,
         rank_of[order] = idx
         selected = (rank_of < budget) & (score > 0)
 
-    p = {k: v.detach() for k, v in params.fields().items()}
-    # split vs clone by world extent (densify.py:309-310)
-    max_scale = torch.exp(p["scale"]).amax(dim=0)
-    is_split = selected & (max_scale > dp.percent_dense * screen_extent)
-
-    # new primitives: clones copy; splits offset by R @ (s * eps) and
-    # shrink scale by 1.6 (densify.py:313-325)
     if normal is None:
         normal = draw_normal(n, generator, dev)
-    eps = normal * torch.exp(p["scale"])
-    norm = torch.sqrt(torch.sum(p["rot"] ** 2, dim=0, keepdim=True))
-    rot_unit = p["rot"] / torch.clamp(norm, min=1e-12)
+    # the copies' sources in index order, never past the capacity
+    profiling.host_wait("densify.copies")
+    ids = torch.nonzero(selected).squeeze(1)[:n - active_count]
+    p = {k: v.detach() for k, v in params.fields().items()}
+    new = {k: v[..., ids] for k, v in p.items()}
+    # split vs clone by world extent (densify.py:309-310)
+    scale = torch.exp(new["scale"])
+    is_split = scale.amax(dim=0) > dp.percent_dense * screen_extent
+    # clones copy; splits offset by R @ (s * eps) and shrink scale by 1.6
+    # (densify.py:313-325).  Computed over the copies alone, in the
+    # reference's order of operations: the Morton resort after the event
+    # turns a last-bit difference in a position into another order
+    eps = normal[:, ids] * scale
+    norm = torch.sqrt(torch.sum(new["rot"] ** 2, dim=0, keepdim=True))
+    rot_unit = new["rot"] / torch.clamp(norm, min=1e-12)
     rot_m = projection.create_transform_matrix(torch.ones_like(eps),
                                                rot_unit)
     # row-vector convention: shift = eps_row @ M  (densify.py:318)
-    shift = torch.einsum("in,ijn->jn", eps, rot_m)
-    new = dict(p)
-    new["xyz"] = torch.where(is_split, p["xyz"] + shift, p["xyz"])
-    new["scale"] = torch.where(is_split, p["scale"] - math.log(1.6),
-                               p["scale"])
+    shift = (eps[:, None] * rot_m).sum(0)
+    new["xyz"] = torch.where(is_split, new["xyz"] + shift, new["xyz"])
+    new["scale"] = torch.where(is_split, new["scale"] - math.log(1.6),
+                               new["scale"])
 
     # appends go to the tail; fresh primitives get zero Adam moments
-    dest = active_count + torch.cumsum(selected.int(), 0) - 1
-    sel = selected & (dest < n)
-    params_out = GaussianModel(**{k: _scatter(p[k], dest, new[k], sel)
-                                  for k in p})
-    adam_out = AdamState(*[{k: _scatter(v, dest, torch.zeros_like(v), sel)
+    slots = torch.arange(active_count, active_count + ids.numel(),
+                         device=dev)
+    params_out = GaussianModel(**{
+        k: v.clone().index_copy_(v.dim() - 1, slots, new[k])
+        for k, v in p.items()})
+    adam_out = AdamState(*[{k: v.clone().index_fill_(v.dim() - 1, slots, 0.0)
                             for k, v in d.items()} for d in adam])
     # fewer than `budget` primitives may carry a positive score: floor
     # again so active_count stays a chunk multiple
-    appended = (min(int(selected.sum()), budget) // chunk_size) * chunk_size
+    appended = (min(ids.numel(), budget) // chunk_size) * chunk_size
     return params_out, adam_out, active_count + appended
 
 
@@ -224,6 +240,7 @@ def prune(params: GaussianModel, adam: AdamState,
     # a run about to prune >80% of its primitives is broken (diverged
     # opacities / dead stats); the reference hard-asserts here
     # (densify.py:146-147)
+    profiling.host_wait("densify.n_prune")
     n_prune = int(prune_mask.sum())
     n_active = max(active_count, 1)
     if n_prune > 0.8 * n_active:
@@ -259,16 +276,19 @@ def reset_opacity(params: GaussianModel, adam: AdamState, dp: DensifyParams):
     return GaussianModel(**fields), adam_out
 
 
+@profiling.spanned("resort", device=model_device)
 def spatial_refine(params: GaussianModel, adam: AdamState,
                    active_count: int):
     """Morton resort of primitives + optimizer state
-    (reference scene/point.py:86-154, invoked trainer.py:104-106)."""
+    (reference scene/point.py:86-154, invoked trainer.py:104-106), over
+    the live primitives' own box; the inactive tail keeps its order."""
     n = params.capacity
     active_mask = torch.arange(n, device=params.xyz.device) < active_count
     perm = spatial_sort_indices(params.xyz.detach(), active_mask)
     return _take(params, adam, perm)
 
 
+@profiling.spanned("densify", device=model_device)
 def densify_step(params, adam, stats, active_count: int, epoch: int,
                  dp: DensifyParams, densify_until: int,
                  init_points_num: int, screen_extent: float,

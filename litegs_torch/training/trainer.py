@@ -58,12 +58,12 @@ class CameraBatch(NamedTuple):
     images: torch.Tensor    # [F, 3, H, W] float32 in [0, 1]
 
 
-def _params_device(params: GaussianModel, *args, **kwargs) -> torch.device:
-    """The device of a span whose call's first argument is the model."""
-    return params.xyz.device
+def _state_device(trainer, state: TrainState, *args, **kwargs):
+    """The device of a trainer's span whose call takes the state first."""
+    return state.params.xyz.device
 
 
-@profiling.spanned("aabb", device=_params_device)
+@profiling.spanned("aabb", device=densify.model_device)
 def masked_chunk_aabb(params: GaussianModel, active_count: int,
                       chunk_size: int):
     """Per-chunk AABBs with inactive chunks pushed out of every frustum."""
@@ -199,10 +199,12 @@ def make_train_step(lp: cfg.ModelParams, op: cfg.OptimizationParams,
         _adam_update(state, [culled], op, spatial_lr_scale, chunk_size)
 
         if collect_stats:
-            stats = statistics.update_stats(
-                stats, culled.chunk_ids, culled.valid,
-                out.primitive_visible,
-                view_raster_stats(out, sink, pp, img_h, img_w), chunk_size)
+            with profiling.span("stats"):
+                stats = statistics.update_stats(
+                    stats, culled.chunk_ids, culled.valid,
+                    out.primitive_visible,
+                    view_raster_stats(out, sink, pp, img_h, img_w),
+                    chunk_size)
 
         metrics = {
             "loss": loss.detach(),
@@ -298,7 +300,7 @@ def make_eval_render(pp: cfg.PipelineParams, img_h: int, img_w: int,
     """fn(params, active_count, view, proj, planes, center) -> (img,
     overflow), rendering one view without autograd."""
     @torch.no_grad()
-    @profiling.spanned("eval", device=_params_device)
+    @profiling.spanned("eval", device=densify.model_device)
     def eval_render(params, active_count, view, proj, planes, center):
         chunk_origin, chunk_extend = masked_chunk_aabb(
             params, active_count, pp.cluster_size)
@@ -488,9 +490,10 @@ class Trainer:
         return state, stats, {"loss": float(np.mean(got[:, 0])),
                               "psnr": float(np.mean(got[:, 1]))}
 
+    @profiling.spanned("boundary", device=_state_device)
     def epoch_boundary(self, state: TrainState, stats, epoch: int):
         """Densification, then the Morton resort, on the reference
-        schedule (trainer.py:101-106, 201)."""
+        schedule (trainer.py:101-106, 201), in a span ``boundary``."""
         params, adam, active, did = densify.densify_step(
             state.params, state.adam, stats, state.active_count, epoch,
             self.dp, self.densify_until, self.init_points_num,

@@ -1247,3 +1247,124 @@ def test_host_waits_are_every_sync_and_spans_partition_the_device(
     assert set(theirs) == set(mine)
     for k, t in mine.items():
         assert abs(theirs[k] - t) < 1_000_000, (k, theirs[k] - t)
+
+
+@pytest.mark.cuda
+def test_host_waits_are_every_sync_in_the_epoch_boundary(cuda_device):
+    """One statistics epoch's ``epoch_boundary`` at a small size (densify,
+    then the Morton resort): the ``densify.*`` marks equal PyTorch's count
+    of synchronizing calls, with the spans off and on, and under
+    ``recording()`` the ``densify`` and ``resort`` spans hold device time
+    and with the root's remainder sum to the ``boundary`` root's."""
+    h, w = 96, 128
+    data, xyz, rgb = synthetic_train.make_task(
+        n_points=3000, n_frames=2, img_h=h, img_w=w, sh_degree=1, seed=5,
+        device=cuda_device)
+
+    def statistics_epoch():
+        tr = Trainer(config.ModelParams(sh_degree=1),
+                     config.OptimizationParams(iterations=20),
+                     config.PipelineParams(),
+                     config.DensifyParams(densify_from=0, densify_until=8,
+                                          densification_interval=2,
+                                          target_primitives=6000),
+                     config.CapacityParams(8192), data, 1.0)
+        state, stats = tr.init_state(xyz, rgb), tr.init_stats()
+        state, stats, _ = tr.run_epoch(state, stats, 2, frame_ids=[0, 1])
+        return tr, state, stats
+
+    found = {}
+    for on in (False, True):
+        tr, state, stats = statistics_epoch()
+
+        def boundary():
+            return tr.epoch_boundary(state, stats, 2)
+
+        if on:
+            with profiling.recording() as rec:
+                (after, _), marked, syncs = _counted(boundary)
+        else:
+            (after, _), marked, syncs = _counted(boundary)
+        assert after.active_count != state.active_count
+        assert sum(marked.values()) == len(syncs), (
+            on, dict(marked), collections.Counter(syncs))
+        assert all(k.startswith("densify.") for k in marked), dict(marked)
+        found[on] = dict(marked)
+    print("boundary host waits (spans off, on):", found)
+    assert found[False] == found[True]
+    table = rec.stage_table("boundary")
+    assert table["roots"] == 1
+    assert set(table["stages"]) == {"densify", "resort", "other"}
+    parts = sum(s["device_ms"] for s in table["stages"].values())
+    assert abs(parts - table["device_ms"]) <= 0.01 * 3
+    assert table["stages"]["densify"]["device_ms"] > 0
+    assert table["stages"]["resort"]["device_ms"] > 0
+    print("boundary", {k: round(v["device_ms"], 4)
+                       for k, v in table["stages"].items()})
+
+
+@pytest.mark.cuda
+def test_densify_event_and_resort_match_the_reference_on_the_card(
+        cuda_device):
+    """A densify event and its Morton resort on the card, at 200,064 live
+    of 262,144 slots of the benchmark's scene with shuffled live
+    primitives: every value but the split copies' scale equals the
+    benchmark's plain reference (``gsbench/reference/densify.event``) on
+    the card bit for bit, and so does the order.  A last-bit difference
+    in a split copy's position would move it in the resort."""
+    import json
+    import pathlib
+    from gsbench import scene as bench_scene
+    from gsbench.reference import densify as ref
+    from litegs_torch.scene.gaussians import GaussianModel
+    from litegs_torch.training import densify as tdens
+    active, cap, chunk, extent = 200_064, 262_144, 128, 1.5
+    root = pathlib.Path(__file__).resolve().parents[1]
+    m = json.loads((root / "gsbench/configs/garden-1m.json").read_text())
+    leaves = bench_scene.model(active, cap, 3, 17, extent, cuda_device,
+                               m["model"])
+    g = torch.Generator().manual_seed(17)
+    shuffle = torch.randperm(active, generator=g).to(cuda_device)
+    for k, val in leaves.items():
+        val[..., :active] = val[..., shuffle]
+    for mm in ref.MOMENTS:
+        for k in ref.FIELDS:
+            leaves[f"{mm}.{k}"] = (torch.rand(leaves[k].shape, generator=g)
+                                   * 1e-3).to(cuda_device)
+    weight = torch.rand(cap, generator=g)
+    weight[torch.rand(cap, generator=g) < 0.1] = 0.0
+    frag = torch.floor(torch.rand(cap, generator=g) * 50)
+    err = torch.randn(cap, generator=g) * 1e-3
+    stats = {"visible_count": torch.floor(torch.rand(cap, generator=g) * 8),
+             "weight_sum": weight, "weight_sq_sum": weight ** 2,
+             "err_sum": err * frag, "err_sq_sum": err * err * frag * 2,
+             "frag_count": frag, "grad_norm_sum": torch.rand(cap, generator=g)}
+    stats = {k: x.to(cuda_device) for k, x in stats.items()}
+    dp = config.DensifyParams(densification_interval=2,
+                              target_primitives=260_000)
+    gen = torch.Generator().manual_seed(23)
+    state = gen.get_state()
+    params = GaussianModel(**{k: leaves[k].clone() for k in ref.FIELDS})
+    adam = optimizer.AdamState(*[{k: leaves[f"{mm}.{k}"].clone()
+                                  for k in ref.FIELDS} for mm in ref.MOMENTS])
+    st = statistics.StatsState(**{k: x.to(torch.int32)
+                                  if k == "visible_count" else x
+                                  for k, x in stats.items()})
+    params, adam, act, did = tdens.densify_step(
+        params, adam, st, active, 16, dp, 41, 150_016, extent, chunk,
+        generator=gen)
+    params, adam = tdens.spatial_refine(params, adam, act)
+    want = ref.event(leaves, stats, active, 16,
+                     {k: getattr(dp, k) for k in dp.__dataclass_fields__},
+                     41, 150_016, extent, chunk, state)
+    assert did and act == want["active"]
+    assert want["appended"] > 0 and want["pruned"] > 0
+    got = dict(params.fields())
+    for mm, d in zip(ref.MOMENTS, adam):
+        got.update({f"{mm}.{k}": x for k, x in d.items()})
+    for k, x in got.items():
+        w = want["leaves"][k]
+        if k == "scale":
+            torch.testing.assert_close(x, w, rtol=0.0, atol=1e-6)
+        else:
+            assert torch.equal(x, w), (k, int((x != w).sum()))

@@ -185,11 +185,93 @@ def test_prune_reset_and_refine_match_jax():
         tp2, ta2 = tdens.reset_opacity(tp, ta,
                                        tcfg.DensifyParams(**dp.__dict__))
         assert_same(jp2, ja2, tp2, ta2)
-    jp, ja, _ = to_jax(p, m, v, stats)
+    # the resort boxes the live primitives in the port (LiteGS's box) and
+    # every slot, parked ones included, in the JAX package: JAX is given
+    # the live prefix alone, whose box is the live box, and the parked
+    # tail keeps its order at the end
+    def head(d):
+        return {k: x[..., :ACTIVE] for k, x in d.items()}
+
+    jp, ja, _ = to_jax(head(p), head(m), head(v), stats)
     tp, ta, _ = to_port(p, m, v, stats)
     jp2, ja2 = jdens.spatial_refine(jp, ja, jnp.int32(ACTIVE))
     tp2, ta2 = tdens.spatial_refine(tp, ta, ACTIVE)
-    assert_same(jp2, ja2, tp2, ta2, atol=0.0)
+    assert_same(jp2, ja2, tp2.mapped(lambda x: x[..., :ACTIVE]),
+                topt.AdamState(*[head(d) for d in ta2]), atol=0.0)
+    got = tgauss.params_to_numpy(tp2)
+    for k in got:
+        for a, b in ((p[k], got[k]), (m[k], ta2.exp_avg[k]),
+                     (v[k], ta2.exp_avg_sq[k])):
+            np.testing.assert_array_equal(np.asarray(b)[..., ACTIVE:],
+                                          a[..., ACTIVE:], err_msg=k)
+    assert not np.array_equal(got["xyz"][:, :ACTIVE], p["xyz"][:, :ACTIVE])
+
+
+def test_resort_boxes_the_live_primitives_as_the_benchmark_reference():
+    """A shuffled live set and a tail parked at 1e8: the port's
+    ``spatial_refine`` gives the order of the benchmark's plain reference
+    (``gsbench/reference/densify.py::resort``, LiteGS's box over the live
+    points), every parameter and moment moved with it, and is not the
+    identity."""
+    from gsbench.reference import densify as ref
+    p, m, v, stats = scene(6)
+    shuffle = np.random.default_rng(6).permutation(ACTIVE)
+    for d in (p, m, v):
+        for k in d:
+            d[k][..., :ACTIVE] = d[k][..., shuffle]
+    assert (p["xyz"][:, ACTIVE:] == 1e8).all()
+    tp, ta, _ = to_port(p, m, v, stats)
+    tp2, ta2 = tdens.spatial_refine(tp, ta, ACTIVE)
+    leaves = {k: T(x) for k, x in p.items()}
+    for name, d in zip(ref.MOMENTS, (m, v)):
+        leaves.update({f"{name}.{k}": T(x) for k, x in d.items()})
+    want = ref.resort(leaves, ACTIVE, box="live")
+    got = tgauss.params_to_numpy(tp2)
+    for name, d in zip(ref.MOMENTS, ta2):
+        got.update({f"{name}.{k}": x.numpy() for k, x in d.items()})
+    assert set(got) == set(want)
+    for k, x in got.items():
+        np.testing.assert_array_equal(x, want[k].numpy(), err_msg=k)
+    assert not np.array_equal(got["xyz"], p["xyz"])
+
+
+def test_event_and_resort_match_the_benchmark_reference():
+    """A densify event and its resort, from the same statistics and
+    generator: the port's order and every value equal the benchmark's
+    plain reference (``gsbench/reference/densify.py::event``) bit for bit,
+    but the split copies' scale (log(s) - log(1.6) against
+    log(s / 1.6)).  A last-bit difference in a split copy's position
+    would move it in the resort."""
+    from gsbench.reference import densify as ref
+    p, m, v, stats = scene(7)
+    dp = tcfg.DensifyParams(densify_from=0, densify_until=8,
+                            densification_interval=2,
+                            opacity_reset_interval=100,
+                            target_primitives=900)
+    gen = torch.Generator().manual_seed(5)
+    state = gen.get_state()
+    tp, ta, ts = to_port(p, m, v, stats)
+    tp, ta, act, did = tdens.densify_step(tp, ta, ts, ACTIVE, 2, dp, 8, 256,
+                                          40.0, CHUNK, generator=gen)
+    tp, ta = tdens.spatial_refine(tp, ta, act)
+    leaves = {k: T(x) for k, x in p.items()}
+    for name, d in zip(ref.MOMENTS, (m, v)):
+        leaves.update({f"{name}.{k}": T(x) for k, x in d.items()})
+    want = ref.event(leaves, {k: T(x).float() for k, x in stats.items()},
+                     ACTIVE, 2, {k: getattr(dp, k)
+                                 for k in dp.__dataclass_fields__},
+                     8, 256, 40.0, CHUNK, state)
+    assert did and act == want["active"] and want["appended"] > 0
+    assert want["pruned"] > 0
+    got = tgauss.params_to_numpy(tp)
+    for name, d in zip(ref.MOMENTS, ta):
+        got.update({f"{name}.{k}": x.numpy() for k, x in d.items()})
+    for k, x in got.items():
+        w = want["leaves"][k].numpy()
+        if k == "scale":
+            np.testing.assert_allclose(x, w, rtol=0.0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(x, w, err_msg=k)
 
 
 def test_densify_step_keeps_appended_and_removes_pruned():

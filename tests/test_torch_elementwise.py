@@ -192,10 +192,20 @@ def test_morton_order():
     np.testing.assert_array_equal(
         N(jmorton.morton_codes(jnp.asarray(xyz))),
         N(tmorton.morton_codes(T(xyz))))
+    # 900 live points and a tail parked as pad_params parks it: the port
+    # boxes the live points (LiteGS's box), the JAX package every slot, so
+    # JAX is given the live prefix alone, whose box is the live box
+    xyz[:, 900:] = 1e8
     mask = np.arange(1000) < 900
+    live = jnp.asarray(xyz[:, :900])
     np.testing.assert_array_equal(
-        N(jmorton.spatial_sort_indices(jnp.asarray(xyz), jnp.asarray(mask))),
-        N(tmorton.spatial_sort_indices(T(xyz), T(mask))))
+        N(jmorton.morton_codes(live)),
+        N(tmorton.morton_codes(T(xyz), T(mask)))[:900])
+    got = N(tmorton.spatial_sort_indices(T(xyz), T(mask)))
+    np.testing.assert_array_equal(N(jmorton.spatial_sort_indices(live)),
+                                  got[:900])
+    np.testing.assert_array_equal(got[900:], np.arange(900, 1000))
+    assert (got[:900] != np.arange(900)).any()
 
 
 def test_create_gaussians_knn_activate_and_roundtrip():

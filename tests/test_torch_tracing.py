@@ -259,3 +259,75 @@ def test_the_recorder_holds_a_bounded_store(monkeypatch):
     assert [(r.name, r.parent, r.root) for r in rec.records] == [
         ("root3", None, 0), ("stage", 0, 0)]
     assert rec.stage_table("root3")["roots"] == 1
+
+
+# the waits one statistics epoch's boundary counts on the taming path: the
+# prune count, the two draws' copies, the copies' ids and the pruned count
+BOUNDARY_WAITS = {"densify.prune_num": 1, "densify.draws": 2,
+                  "densify.copies": 1, "densify.n_prune": 1}
+
+
+def _densify_trainer(task):
+    """A trainer whose epoch 2 collects statistics and ends in an
+    event."""
+    data, xyz, rgb = task
+    tr = Trainer(config.ModelParams(sh_degree=1),
+                 config.OptimizationParams(iterations=20),
+                 config.PipelineParams(),
+                 config.DensifyParams(densify_from=0, densify_until=8,
+                                      densification_interval=2,
+                                      target_primitives=900),
+                 config.CapacityParams(1024), data, 1.0)
+    return tr, tr.init_state(xyz, rgb), tr.init_stats()
+
+
+def test_statistics_steps_and_the_boundary_record_their_spans(task):
+    tr, state, stats = _densify_trainer(task)
+    before = profiling.HOST_WAITS.copy()
+    with profiling.recording() as rec:
+        state, stats, _ = tr.run_epoch(state, stats, 2, frame_ids=[0, 1])
+        active = state.active_count
+        state, stats = tr.epoch_boundary(state, stats, 2)
+    got = profiling.HOST_WAITS - before
+    assert state.active_count != active
+    recs = rec.records
+    steps = [i for i, r in enumerate(recs) if r.name == "step"]
+    for i in steps:
+        kids = {r.name: r for r in recs if r.parent == i}
+        assert set(kids) == set(STAGES) - {"raster_bwd"} | {"stats"}
+        assert kids["stats"].waits == {"stats.mask": 8}
+    table = rec.stage_table("step")
+    assert table["roots"] == 2 and table["stages"]["stats"]["count"] == 2
+    bound = [i for i, r in enumerate(recs) if r.name == "boundary"]
+    assert len(bound) == 1 and recs[bound[0]].parent is None
+    assert [(r.name, r.parent) for r in recs if r.root == bound[0]] == [
+        ("boundary", None), ("densify", bound[0]), ("resort", bound[0])]
+    table = rec.stage_table("boundary", last=1)
+    assert table["roots"] == 1 and table["device_ms"] is None
+    assert set(table["stages"]) == {"densify", "resort", "other"}
+    assert table["stages"]["densify"]["waits"] == BOUNDARY_WAITS
+    assert table["stages"]["resort"]["waits"] == {}
+    # every densify.* mark of the epoch and its boundary is inside it
+    assert {k: n for k, n in got.items()
+            if k.startswith("densify.")} == BOUNDARY_WAITS
+
+
+def test_boundary_is_bitwise_the_same_with_spans_on(task):
+    tr, state, stats = _densify_trainer(task)
+    state, stats, _ = tr.run_epoch(state, stats, 2, frame_ids=[0, 1])
+    draws = tr.generator.get_state()
+    profiling.RECORDER.clear()
+    off, s_off = tr.epoch_boundary(state, stats, 2)
+    assert profiling.RECORDER.records == []
+    # the same inputs and draws again, spans on
+    tr.generator.set_state(draws)
+    with profiling.recording() as rec:
+        on, s_on = tr.epoch_boundary(state, stats, 2)
+    assert rec.stage_table("boundary")["roots"] == 1
+    assert off.active_count == on.active_count != state.active_count
+    for k, v in off.params.fields().items():
+        assert torch.equal(v, on.params.fields()[k]), k
+        assert torch.equal(off.adam.exp_avg[k], on.adam.exp_avg[k]), k
+        assert torch.equal(off.adam.exp_avg_sq[k], on.adam.exp_avg_sq[k]), k
+    for a, b in zip(s_off, s_on):
+        assert torch.equal(a, b)
